@@ -1,0 +1,115 @@
+"""The port's kernels on an NVIDIA card: the frame kernel against the plain
+torch version on the same CUDA tensors, and the audio folds against the
+host loop.  Marked ``cuda``; they skip where there is no card.  Run them on
+the card with ``pytest -m cuda tests/``.  Tolerance: 1 LSB for pixels
+(the kernel is built to be bit-exact, and this checks that too), exact for
+audio."""
+
+import numpy as np
+import pytest
+import torch
+
+from swiftvideo_tpu.media import PixelFormat as PF
+from swiftvideo_tpu_torch.ops import audio, composite, frame
+from swiftvideo_tpu_torch.ops.uniforms import rect_uniforms
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _planes(rng, fmt, w, h, device):
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, np.int64)
+                                .astype(np.uint8)).to(device)
+    if fmt == PF.y420p:
+        return [u8(h, w), u8(h // 2, w // 2), u8(h // 2, w // 2)]
+    if fmt in (PF.nv12, PF.nv21):
+        return [u8(h, w), u8(h // 2, w // 2, 2)]
+    return [u8(h, w, 4)]
+
+
+def _scene(rng, device, w, h):
+    """Cameras 2:1 into quadrants, a rotated nv12 picture-in-picture with
+    border and fill, a fractional-scale nv21 source, a rotated BGRA logo
+    and an RGBA lower third with an alpha ramp."""
+    srcs = [(_planes(rng, PF.y420p, w, h, device), PF.y420p, rect_uniforms(
+        (w, h), (w, h), x=(s % 2) * w / 2, y=(s // 2) * h / 2, w=w / 2,
+        h=h / 2, opacity=0.9)) for s in range(4)]
+    srcs += [
+        (_planes(rng, PF.nv12, w // 2, h // 2, device), PF.nv12, rect_uniforms(
+            (w // 2, h // 2), (w, h), x=w / 4, y=h / 4, w=w / 3, h=h / 3,
+            rotation=0.4, opacity=0.7, fill_color=(0.9, 0.2, 0.1, 0.6),
+            border=(w / 4 - 6, h / 4 - 6, w / 3 + 12, h / 3 + 12))),
+        (_planes(rng, PF.nv21, w, h, device), PF.nv21, rect_uniforms(
+            (w, h), (w, h), x=10.25, y=5.5, w=w * 0.4, h=h * 0.37,
+            opacity=0.8)),
+        (_planes(rng, PF.BGRA, w // 4, h // 4, device), PF.BGRA,
+         rect_uniforms((w // 4, h // 4), (w, h), x=w * 0.6, y=h * 0.1,
+                       w=w / 4, h=h * 0.375, rotation=-0.2,
+                       fill_color=(0.1, 0.8, 0.3, 0.5),
+                       border=(w * 0.6 - 4, h * 0.1 - 4, w / 4 + 8,
+                               h * 0.375 + 8))),
+    ]
+    lower = _planes(rng, PF.RGBA, w, h // 5, device)
+    lower[0][..., 3] = torch.linspace(0, 255, w, device=device).to(
+        torch.uint8)[None, :]
+    srcs.append((lower, PF.RGBA, rect_uniforms(
+        (w, h // 5), (w, h), x=0, y=h - h // 5 - 20, w=w, h=h // 5)))
+    return srcs
+
+
+@pytest.mark.parametrize("size", [(320, 180), (1920, 1080)])
+@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.nv12, PF.nv21],
+                         ids=lambda f: f.value)
+def test_kernel_matches_plain_on_card(card, size, out_fmt):
+    srcs = _scene(np.random.default_rng(1), card, *size)
+    launches = frame.launches
+    got = frame.composite_frame_cuda(size, srcs, out_fmt)
+    assert frame.launches == launches + 1
+    ref = composite.composite_stack_torch(out_fmt, size, srcs, card)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape
+        assert int((g.int() - r.int()).abs().max()) <= TOL
+
+
+def test_kernel_chained_target_on_card(card):
+    size = (320, 180)
+    srcs = _scene(np.random.default_rng(2), card, *size)
+    base = composite.composite_stack_torch(PF.nv21, size, srcs[:3], card)
+    got = frame.composite_frame_cuda(size, srcs[3:], PF.nv21, target=base)
+    ref = composite.composite_stack_torch(PF.nv21, size, srcs[3:], card,
+                                          target=base)
+    for g, r in zip(got, ref):
+        assert int((g.int() - r.int()).abs().max()) <= TOL
+
+
+def test_audio_folds_equal_host_on_card(card):
+    rng = np.random.default_rng(3)
+    n_src, n = 64, 960 * 2
+    srcs = rng.integers(-32768, 32768, (n_src, n), np.int64).astype(np.int16)
+    gains = rng.uniform(0.0, 1.5, (n_src, 2)).astype(np.float32)
+    host = np.zeros(n, np.int16)
+    for k in range(n_src):
+        audio.apply_mix_s16(srcs[k], gains[k], host)
+    out = audio.mix_s16_device(torch.from_numpy(srcs).to(card), gains)
+    assert np.array_equal(out.cpu().numpy(), host)
+    starts = np.full(n_src, 7)
+    ends = np.full(n_src, n - 3)
+    win = np.zeros_like(srcs)
+    win[:, 7:n - 3] = srcs[:, :n - 10]
+    host_w = np.zeros(n, np.int16)
+    for k in range(n_src):
+        audio.apply_mix_s16(srcs[k, :n - 10], gains[k], host_w,
+                            backing_start=7)
+    out_w = audio.mix_s16_device_windowed(torch.from_numpy(win).to(card),
+                                          gains, starts, ends)
+    assert np.array_equal(out_w.cpu().numpy(), host_w)
