@@ -2,15 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the frame kernel from ``swiftvideo_tpu_torch/csrc``, holds it
-against the plain torch version at the live-station size (a 1080p canvas,
-four full-1080p y420p cameras scaled 2:1 into its quadrants at opacity
-0.9, and a 1920x216 RGBA lower third), drives the port's Composer for 60+
-video ticks of that scene with four stereo s16 audio assets, checks the
-audio fold on the card against the host loop, and times the kernel and the
-plain version per tick.  Each phase prints one line; any failure exits
-non-zero.  The last line is the run's JSON summary.  Needs a CUDA device;
-imports nothing of JAX.
+Builds both kernel sources of ``swiftvideo_tpu_torch/csrc`` (one nvcc each,
+started together) and drives the port's paths at full size:
+
+* the frame kernel on yuv targets (K1 cameras, K2 overlays) against the
+  plain torch version at the live-station size (a 1080p canvas, four
+  full-1080p y420p cameras scaled 2:1 into its quadrants at opacity 0.9,
+  and a 1920x216 RGBA lower third); the port's Composer for 60 video ticks
+  of that scene with four stereo s16 audio assets; the audio fold on the
+  card against the host loop;
+* the frame kernel on RGBA / BGRA targets (K3) against the plain version
+  on the same scene, the Composer's VideoMixer with an RGBA output for 30
+  ticks, and ``apply_compute_image`` with ``img_y420p_rgba`` (a 1280x720
+  y420p picture into a 640x360 RGBA canvas);
+* the motion search, SAD (K4) and SSD (K5), through ``run_compute_kernel``
+  at 1080p with 16x16 blocks and a 64-pixel window, against the plain
+  version, on a reference shifted by a known vector, and both at 4K.
+
+Then it times every kernel and its plain version with CUDA events.  Each
+phase prints one line; any failure exits non-zero.  The line before the
+last holds every kernel's numbers as JSON; the last line is the run's JSON
+summary.  Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,8 +38,15 @@ import torch
 W, H = 1920, 1080
 OV_H = 216
 LSB = 1  # tolerance of every pixel comparison, in u8 steps
-FRAME_REPLACES = {"K1": "swiftvideo_tpu/ops/pallas_frame.py:127",
-                  "K2": "swiftvideo_tpu/ops/pallas_frame.py:1100"}
+BLOCK, SEARCH = 16, 64
+# published peaks of one H100 SXM (dense): HBM bytes/s, float32 outside the
+# tensor cores (taken for the integer SAD terms too), bf16 tensor cores
+HBM_BPS, NONTENSOR_OPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+REPLACES = {"K1": "swiftvideo_tpu/ops/pallas_frame.py:127",
+            "K2": "swiftvideo_tpu/ops/pallas_frame.py:1100",
+            "K3": "swiftvideo_tpu/ops/pallas_frame.py:1524",
+            "K4": "swiftvideo_tpu/ops/motion.py:260",
+            "K5": "swiftvideo_tpu/ops/motion.py:982"}
 
 
 def fail(msg: str) -> None:
@@ -41,10 +60,10 @@ def max_err(a, b):
     return max(int(t.max()) for t in d), sum(int((t > 0).sum()) for t in d)
 
 
-def camera_planes(rng, n):
-    return [[rng.integers(0, 256, (H, W), np.int64).astype(np.uint8),
-             rng.integers(0, 256, (H // 2, W // 2), np.int64).astype(np.uint8),
-             rng.integers(0, 256, (H // 2, W // 2), np.int64).astype(np.uint8)]
+def camera_planes(rng, n, w=W, h=H):
+    return [[rng.integers(0, 256, (h, w), np.int64).astype(np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2), np.int64).astype(np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2), np.int64).astype(np.uint8)]
             for _ in range(n)]
 
 
@@ -56,10 +75,10 @@ def overlay_plane(rng):
     return rgba
 
 
-def timed_ms(fn, reps=20, batch=10):
+def timed_ms(fn, reps=20, batch=10, warmup=3):
     """Median device time per call over ``reps`` batches of ``batch``
     back-to-back calls, from CUDA events."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ts = []
@@ -75,22 +94,58 @@ def timed_ms(fn, reps=20, batch=10):
     return float(np.median(ts))
 
 
+def frame_bytes(size, sources, out_fmt):
+    """Bytes a composite must move: every source plane read once, the
+    target written once."""
+    from swiftvideo_tpu_torch.media.pixel import num_planes, plane_array_shape
+    read = sum(p.numel() for planes, _f, _u in sources for p in planes)
+    write = sum(int(np.prod(plane_array_shape(out_fmt, size, i)))
+                for i in range(num_planes(out_fmt)))
+    return read + write
+
+
+def bound(nbytes, ops, peak):
+    """(least ms the card could take, what bounds it): bytes over the HBM
+    rate against operations over ``peak``."""
+    by_bytes = nbytes / HBM_BPS * 1e3
+    by_ops = ops / peak * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def pixel_candidates(h, w, motion):
+    """Pixel-candidate terms of a full search: block pixels times the
+    candidates of every block's clamped window, for this geometry."""
+    xlo, xhi = motion.search_bounds(np.arange(w // BLOCK) * BLOCK, BLOCK,
+                                    SEARCH, w)
+    ylo, yhi = motion.search_bounds(np.arange(h // BLOCK) * BLOCK, BLOCK,
+                                    SEARCH, h)
+    return (BLOCK * BLOCK * int(np.maximum(xhi - xlo, 0).sum())
+            * int(np.maximum(yhi - ylo, 0).sum()))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA card")
-    from swiftvideo_tpu.core import Bus, EventBox, StepClock, TimePoint, Tx
-    from swiftvideo_tpu.media import (AudioFormat, AudioSample, BufferType,
-                                      ImageBuffer, PictureSample, PixelFormat,
-                                      planes_for_format)
-    from swiftvideo_tpu.scene import Composition, Element, ElementState, Scene
     from swiftvideo_tpu_torch.compose import Composer
+    from swiftvideo_tpu_torch.core import Bus, EventBox, StepClock, TimePoint, Tx
+    from swiftvideo_tpu_torch.media import (AudioFormat, AudioSample,
+                                            BufferType, ImageBuffer,
+                                            PictureSample, PixelFormat,
+                                            create_picture_sample,
+                                            planes_for_format)
     from swiftvideo_tpu_torch.mix import video_mixer
-    from swiftvideo_tpu_torch.ops import audio, composite, frame
-    from swiftvideo_tpu_torch.ops.registry import make_compute_context
-    from swiftvideo_tpu_torch.ops.uniforms import rect_uniforms
+    from swiftvideo_tpu_torch.ops import (audio, composite, frame, motion, nvcc,
+                                          registry)
+    from swiftvideo_tpu_torch.ops.uniforms import ImageUniforms, rect_uniforms
+    from swiftvideo_tpu_torch.scene import (Composition, Element, ElementState,
+                                            Scene)
+    from swiftvideo_tpu_torch.utils import matrix as m4
 
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("jax was imported")
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                             "swiftvideo_tpu")]
+    if loaded:
+        fail(f"JAX or the JAX package was imported: {sorted(loaded)[:5]}")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -100,16 +155,19 @@ def main() -> None:
     print(f"[1 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | cuda {torch.version.cuda}", flush=True)
 
-    # phase 2: build
+    # phase 2: build every kernel source at once
     t0 = time.perf_counter()
+    nvcc.build_all([frame.SOURCE, motion.SOURCE])
     frame.build()
-    regs = [ln.strip() for ln in frame.build_log.splitlines()
-            if "registers" in ln]
-    print(f"[2 build] frame_composite.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s; {'; '.join(regs) or 'cached'}",
+    motion.build()
+    regs = [f"{name}: {ln.split(':', 1)[1].strip()}"
+            for name, log in sorted(nvcc.build_logs.items())
+            for ln in log.splitlines() if "registers" in ln]
+    print(f"[2 build] frame_composite.cu and motion_search.cu built and loaded "
+          f"in {time.perf_counter() - t0:.2f} s; {'; '.join(regs) or 'cached'}",
           flush=True)
 
-    # phase 3: kernel vs plain on the card, entry() geometry + lower third
+    # phase 3: yuv-target kernel vs plain on the card, live-station stack
     rng = np.random.default_rng(0)
     cams = [[torch.from_numpy(p).to(dev) for p in planes]
             for planes in camera_planes(rng, 4)]
@@ -135,103 +193,120 @@ def main() -> None:
             parts.append(f"{name}/{fmt.value} err {err} above0 {n_above}")
     print(f"[3 kernel vs plain, tol {LSB} LSB] " + "; ".join(parts), flush=True)
 
-    # phase 4: the main path — Composer ticks on a StepClock
-    clock = StepClock(TimePoint(480, 48000))
-    audio_bus, picture_bus = Bus(clock), Bus(clock)
-    elements = tuple(
-        Element(name=f"cam{s}", z_index=s, initial_state=ElementState(
-            pic_pos=((s % 2) * 960.0, (s // 2) * 540.0), size=(960.0, 540.0),
-            transparency=0.1))
-        for s in range(4)) + (
-        Element(name="lower_third", z_index=10, initial_state=ElementState(
-            pic_pos=(0.0, float(H - OV_H - 40)), size=(float(W), float(OV_H)))),)
-    comp = Composition(name="live", canvas_size=(W, H),
-                       frame_duration=TimePoint(1000, 30000),
-                       audio_frame_duration=TimePoint(480, 48000),
-                       sample_rate=48000, channel_count=2,
-                       scenes=(Scene(name="main", elements=elements),),
-                       initial_scene="main")
-    ctx = make_compute_context(dev)
-    composer = Composer(clock, workspace_id="w", composition=comp,
-                        audio_bus=audio_bus, picture_bus=picture_bus,
-                        compute_context=ctx, output_format=PixelFormat.y420p)
-    frames, mixed_audio = [], []
-    # the buses hold their subscribers weakly
-    keep = [picture_bus.subscribe(Tx(
-                lambda s: (frames.append(s), EventBox.just(s))[1]
-                if s.asset_id() == "live" else EventBox.nothing(None))),
-            audio_bus.subscribe(Tx(
-                lambda s: (mixed_audio.append(s), EventBox.just(s))[1]
-                if s.asset_id() == "live" else EventBox.nothing(None)))]
-    for s in range(4):
-        composer.bind(f"cam{s}", f"cam{s}")
-    composer.bind("lt", "lower_third")
-
-    last_call = {}
-    mixer_composite = video_mixer.composite_frame
-
-    def spy(ctx_, out_fmt, size, sources, target=None):
-        last_call.update(out_fmt=out_fmt, size=size, sources=sources)
-        return mixer_composite(ctx_, out_fmt, size, sources, target)
-
-    video_mixer.composite_frame = spy
+    # phases 4 and 8: the Composer on a StepClock (cameras + lower third)
     host_sets = [camera_planes(rng, 4) for _ in range(2)]
     ov_host = overlay_plane(rng)
-
-    def picture(asset, fmt, planes):
-        h, w = planes[0].shape[:2]
-        img = ImageBuffer(pixel_format=fmt, buffer_type=BufferType.cpu,
-                          size=(w, h), planes=tuple(planes_for_format(
-                              fmt, (w, h))), buffers=tuple(planes))
-        return PictureSample(img, asset, "w", time_point=clock.current(),
-                             pts_value=clock.current())
-
-    audio_pts = TimePoint(0, 48000)
     tone = [(np.sin(np.arange(480) * (k + 1) * 0.05) * 3000).astype(np.int16)
             for k in range(4)]
-    n_ticks, step = 60, 0
-    frame.launches = 0
-    composite.calls = 0
-    t0 = time.perf_counter()
-    picture_bus.append(EventBox.just(picture("lt", PixelFormat.RGBA, [ov_host])))
-    while len(frames) < n_ticks:
-        if step % 3 == 0:
-            for s, planes in enumerate(host_sets[(step // 3) % 2]):
-                picture_bus.append(EventBox.just(
-                    picture(f"cam{s}", PixelFormat.y420p, planes)))
-        for k in range(4):
-            pcm = np.repeat(tone[k], 2)
-            audio_bus.append(EventBox.just(AudioSample(
-                buffers=(pcm,), frequency=48000, channels=2,
-                format=AudioFormat.s16i, sample_count=480,
-                pts_value=audio_pts, id_asset=f"cam{k}", id_workspace="w")))
-        audio_pts = audio_pts + TimePoint(480, 48000)
-        clock.step()
-        step += 1
-        if step > 10 * n_ticks:
-            fail(f"only {len(frames)} frames after {step} clock steps")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain_calls = frame.launches, composite.calls
-    video_mixer.composite_frame = mixer_composite
-    composer.close()
-    if launches != len(frames):
-        fail(f"frame kernel launches {launches} != video ticks {len(frames)}")
-    if plain_calls != 0:
-        fail(f"{plain_calls} ticks took the plain composite")
-    if not all(isinstance(p, torch.Tensor) and p.is_cuda
-               and f.buffer_type() == BufferType.gpu
-               for f in frames for p in f.planes()):
-        fail("a mixed frame does not hold CUDA tensors")
+
+    def drive_composer(out_fmt, n_ticks):
+        """n_ticks video ticks of the live scene onto an out_fmt canvas;
+        returns (frames, audio frames, kernel launches, plain composites,
+        clock steps, host wall s, the last tick's composite call)."""
+        clock = StepClock(TimePoint(480, 48000))
+        audio_bus, picture_bus = Bus(clock), Bus(clock)
+        elements = tuple(
+            Element(name=f"cam{s}", z_index=s, initial_state=ElementState(
+                pic_pos=((s % 2) * 960.0, (s // 2) * 540.0),
+                size=(960.0, 540.0), transparency=0.1))
+            for s in range(4)) + (
+            Element(name="lower_third", z_index=10, initial_state=ElementState(
+                pic_pos=(0.0, float(H - OV_H - 40)),
+                size=(float(W), float(OV_H)))),)
+        comp = Composition(name="live", canvas_size=(W, H),
+                           frame_duration=TimePoint(1000, 30000),
+                           audio_frame_duration=TimePoint(480, 48000),
+                           sample_rate=48000, channel_count=2,
+                           scenes=(Scene(name="main", elements=elements),),
+                           initial_scene="main")
+        # no context given: the Composer takes the card by default
+        composer = Composer(clock, workspace_id="w", composition=comp,
+                            audio_bus=audio_bus, picture_bus=picture_bus,
+                            output_format=out_fmt)
+        if composer.ctx.device.type != "cuda":
+            fail(f"the Composer's default device is {composer.ctx.device}")
+        frames, mixed_audio = [], []
+        # the buses hold their subscribers weakly
+        keep = [picture_bus.subscribe(Tx(
+                    lambda s: (frames.append(s), EventBox.just(s))[1]
+                    if s.asset_id() == "live" else EventBox.nothing(None))),
+                audio_bus.subscribe(Tx(
+                    lambda s: (mixed_audio.append(s), EventBox.just(s))[1]
+                    if s.asset_id() == "live" else EventBox.nothing(None)))]
+        for s in range(4):
+            composer.bind(f"cam{s}", f"cam{s}")
+        composer.bind("lt", "lower_third")
+        last_call = {}
+        mixer_composite = video_mixer.composite_frame
+
+        def spy(ctx_, fmt, size, sources, target=None):
+            last_call.update(out_fmt=fmt, size=size, sources=sources)
+            return mixer_composite(ctx_, fmt, size, sources, target)
+
+        def picture(asset, fmt, planes):
+            h, w = planes[0].shape[:2]
+            img = ImageBuffer(pixel_format=fmt, buffer_type=BufferType.cpu,
+                              size=(w, h), planes=tuple(planes_for_format(
+                                  fmt, (w, h))), buffers=tuple(planes))
+            return PictureSample(img, asset, "w", time_point=clock.current(),
+                                 pts_value=clock.current())
+
+        video_mixer.composite_frame = spy
+        audio_pts = TimePoint(0, 48000)
+        step = 0
+        frame.launches = 0
+        motion.launches = 0
+        composite.calls = 0
+        t0 = time.perf_counter()
+        picture_bus.append(EventBox.just(picture("lt", PixelFormat.RGBA,
+                                                 [ov_host])))
+        while len(frames) < n_ticks:
+            if step % 3 == 0:
+                for s, planes in enumerate(host_sets[(step // 3) % 2]):
+                    picture_bus.append(EventBox.just(
+                        picture(f"cam{s}", PixelFormat.y420p, planes)))
+            for k in range(4):
+                pcm = np.repeat(tone[k], 2)
+                audio_bus.append(EventBox.just(AudioSample(
+                    buffers=(pcm,), frequency=48000, channels=2,
+                    format=AudioFormat.s16i, sample_count=480,
+                    pts_value=audio_pts, id_asset=f"cam{k}", id_workspace="w")))
+            audio_pts = audio_pts + TimePoint(480, 48000)
+            clock.step()
+            step += 1
+            if step > 10 * n_ticks:
+                fail(f"only {len(frames)} frames after {step} clock steps")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain_calls = frame.launches, composite.calls
+        video_mixer.composite_frame = mixer_composite
+        composer.close()
+        del keep
+        if launches != len(frames):
+            fail(f"{out_fmt.value}: frame kernel launches {launches} != video "
+                 f"ticks {len(frames)}")
+        if plain_calls != 0:
+            fail(f"{out_fmt.value}: {plain_calls} ticks took the plain "
+                 "composite")
+        if not all(isinstance(p, torch.Tensor) and p.is_cuda
+                   and f.buffer_type() == BufferType.gpu
+                   for f in frames for p in f.planes()):
+            fail(f"{out_fmt.value}: a mixed frame does not hold CUDA tensors")
+        if len(last_call["sources"]) != 5:
+            fail(f"last tick composited {len(last_call['sources'])} sources, "
+                 "not 5")
+        ref = composite.composite_stack_torch(last_call["out_fmt"],
+                                              last_call["size"],
+                                              last_call["sources"], dev)
+        last = frames[-1].planes()
+        err, above = max_err(last, ref)
+        if err > LSB:
+            fail(f"{out_fmt.value}: last mixed frame vs plain max abs err {err}")
+        return frames, mixed_audio, launches, plain_calls, step, wall, err, above
+
+    frames, mixed_audio, launches, plain_calls, steps, wall, main_err, \
+        main_above = drive_composer(PixelFormat.y420p, 60)
     last = frames[-1].planes()
-    ref = composite.composite_stack_torch(last_call["out_fmt"],
-                                          last_call["size"],
-                                          last_call["sources"], dev)
-    if len(last_call["sources"]) != 5:
-        fail(f"last tick composited {len(last_call['sources'])} sources, not 5")
-    main_err, main_above = max_err(last, ref)
-    if main_err > LSB:
-        fail(f"last mixed frame vs plain max abs err {main_err}")
     if [tuple(p.shape) for p in last] != [(H, W), (H // 2, W // 2),
                                           (H // 2, W // 2)]:
         fail(f"mixed frame shapes {[tuple(p.shape) for p in last]}")
@@ -241,9 +316,10 @@ def main() -> None:
         fail(f"mixed audio sample counts {counts}")
     if not np.any(mixed_audio[-1].data()[0]):
         fail("mixed audio is silent")
-    print(f"[4 main path] {len(frames)} video ticks in {wall:.2f} s host wall "
-          f"({step} clock steps); frame kernel launches {launches}; plain "
-          f"composites {plain_calls}; last frame vs plain err {main_err} "
+    yuv_launches = launches
+    print(f"[4 main path, y420p] {len(frames)} video ticks in {wall:.2f} s host "
+          f"wall ({steps} clock steps); frame kernel launches {launches}; "
+          f"plain composites {plain_calls}; last frame vs plain err {main_err} "
           f"above0 {main_above}; {len(mixed_audio)} audio frames of 480 "
           f"samples", flush=True)
 
@@ -276,7 +352,7 @@ def main() -> None:
     print(f"[5 audio fold] {n_src} sources x {n} s16 on {dev}: aligned and "
           f"windowed folds equal apply_mix_s16 exactly", flush=True)
 
-    # phase 6: per-tick times at the main-path shape
+    # phase 6: per-tick times of the yuv-target kernel at the main-path shape
     full = stacks["K1+K2"]
     times = {
         "K1": timed_ms(lambda: frame.composite_frame_cuda((W, H), cam_srcs)),
@@ -291,17 +367,184 @@ def main() -> None:
         "K1+K2": timed_ms(lambda: composite.composite_stack_torch(
             PixelFormat.y420p, (W, H), full, dev), batch=2),
     }
+    bounds = {k: bound(frame_bytes((W, H), stacks[k], PixelFormat.y420p), 0,
+                       1.0)[0] for k in times}
     print("[6 timings, median of 20 reps, ms per 1080p tick] " + "; ".join(
-        f"{k}: kernel {times[k]:.4f} plain {plain[k]:.4f}" for k in times)
-        + f" | {smi}", flush=True)
+        f"{k}: kernel {times[k]:.4f} plain {plain[k]:.4f} bound "
+        f"{bounds[k]:.4f}" for k in times) + f" | {smi}", flush=True)
 
-    kernels = [{"name": f"frame_composite ({k}: "
-                        f"{'planar-yuv cameras' if k == 'K1' else 'RGBA overlay'})",
-                "route": "cuda",
-                "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
-                "replaces": FRAME_REPLACES[k], "launches": launches,
-                "max_abs_err": errs[k], "ms": times[k], "plain_ms": plain[k]}
-               for k in ("K1", "K2")]
+    # phase 7: RGBA / BGRA-target kernel vs plain, live stack and config 1
+    cfg1_src = [torch.from_numpy(p).to(dev)
+                for p in camera_planes(rng, 1, 1280, 720)[0]]
+    cfg1_srcs = [(cfg1_src, PixelFormat.y420p,
+                  rect_uniforms((1280, 720), (640, 360), x=0, y=0, w=640,
+                                h=360))]
+    rgba_cases = [("live 1080p RGBA", (W, H), full, PixelFormat.RGBA),
+                  ("live 1080p BGRA", (W, H), full, PixelFormat.BGRA),
+                  ("config 1 640x360 RGBA", (640, 360), cfg1_srcs,
+                   PixelFormat.RGBA)]
+    parts = []
+    errs["K3"] = 0
+    for name, size, srcs, fmt in rgba_cases:
+        got = frame.composite_frame_cuda(size, srcs, fmt)
+        ref = composite.composite_stack_torch(fmt, size, srcs, dev)
+        torch.cuda.synchronize()
+        if tuple(got[0].shape) != (size[1], size[0], 4):
+            fail(f"{name}: kernel output shape {tuple(got[0].shape)}")
+        err, n_above = max_err(got, ref)
+        if err > LSB:
+            fail(f"{name}: kernel vs plain max abs err {err}")
+        errs["K3"] = max(errs["K3"], err)
+        parts.append(f"{name} err {err} above0 {n_above}")
+    print(f"[7 K3 RGBA-target kernel vs plain, tol {LSB} LSB] "
+          + "; ".join(parts), flush=True)
+
+    # phase 8: the Composer's VideoMixer with an RGBA output
+    frames, _audio, rgba_launches, plain_calls, steps, wall, rgba_err, \
+        rgba_above = drive_composer(PixelFormat.RGBA, 30)
+    if tuple(frames[-1].planes()[0].shape) != (H, W, 4):
+        fail(f"RGBA frame shape {tuple(frames[-1].planes()[0].shape)}")
+    print(f"[8 main path, RGBA] {len(frames)} video ticks in {wall:.2f} s host "
+          f"wall ({steps} clock steps); frame kernel launches {rgba_launches}; "
+          f"plain composites {plain_calls}; last frame vs plain err {rgba_err} "
+          f"above0 {rgba_above}", flush=True)
+
+    # phase 9: apply_compute_image with img_y420p_rgba (config 1)
+    ctx = registry.make_compute_context()
+    image = create_picture_sample((1280, 720), PixelFormat.y420p,
+                                  asset_id="cam", workspace_id="w")
+    image = image.with_(img=image.img.with_buffers(cfg1_src, BufferType.gpu),
+                        matrix=m4.ortho(640, 360) @ m4.scale(640, 360))
+    canvas = create_picture_sample((640, 360), PixelFormat.RGBA,
+                                   asset_id="out", workspace_id="w")
+    canvas.planes()[0][:] = rng.integers(0, 256, (360, 640, 4), np.int64)
+    frame.launches = composite.calls = 0
+    out = registry.apply_compute_image(ctx, image, canvas)
+    torch.cuda.synchronize()
+    cfg1_launches, cfg1_plain = frame.launches, composite.calls
+    ref = composite.composite_stack_torch(
+        PixelFormat.RGBA, (640, 360),
+        [(cfg1_src, PixelFormat.y420p, ImageUniforms.from_sample(image, canvas))],
+        dev, target=[torch.from_numpy(canvas.planes()[0]).to(dev)])
+    cfg1_err, cfg1_above = max_err(out.planes(), ref)
+    if (cfg1_launches, cfg1_plain) != (1, 0) or cfg1_err > LSB:
+        fail(f"config 1: launches {cfg1_launches}, plain composites "
+             f"{cfg1_plain}, err {cfg1_err}")
+    print(f"[9 config 1 registry] img_y420p_rgba 1280x720 -> 640x360 on "
+          f"{ctx.device}: kernel launches {cfg1_launches}; vs plain err "
+          f"{cfg1_err} above0 {cfg1_above}", flush=True)
+
+    # phase 10: motion search through the registry, kernel vs plain, exact
+    def luma_sample(plane):
+        h, w = plane.shape
+        s = create_picture_sample((w, h), PixelFormat.y420p, asset_id="cam",
+                                  workspace_id="w")
+        return s.with_(img=s.img.with_buffers(
+            [plane] + list(s.planes()[1:]), BufferType.gpu))
+
+    def motion_frames(h, w, seed):
+        r = np.random.default_rng(seed)
+        ref = r.integers(0, 255, (h, w), np.int64).astype(np.uint8)
+        cur = np.clip(ref.astype(int) + r.integers(-12, 12, ref.shape), 0,
+                      255).astype(np.uint8)
+        return (torch.from_numpy(cur).to(dev), torch.from_numpy(ref).to(dev))
+
+    me_names = {"sad": "me_fullsearch", "ssd": "me_fullsearch_ssd"}
+    me_frames = {"1080p": motion_frames(H, W, 1),
+                 "4K": motion_frames(2160, 3840, 2)}
+    me_cases = [("K4", "sad", "1080p"), ("K5", "ssd", "1080p"),
+                ("K4", "sad", "4K"), ("K5", "ssd", "4K")]
+    me_launches, parts = {}, []
+    for key, metric, res in me_cases:
+        cur, ref = me_frames[res]
+        kernel = registry.default_compute_kernel_from_string(me_names[metric])
+        frame.launches = motion.launches = composite.calls = 0
+        got = registry.run_compute_kernel(
+            ctx, [luma_sample(cur), luma_sample(ref)],
+            create_picture_sample((cur.shape[1] // BLOCK, cur.shape[0] // BLOCK),
+                                  PixelFormat.RGBA, asset_id="mv",
+                                  workspace_id="w"), kernel)
+        torch.cuda.synchronize()
+        me_launches[(key, res)] = motion.launches
+        if motion.launches != 1 or frame.launches or composite.calls:
+            fail(f"{key} {res}: motion launches {motion.launches}")
+        mv = got.planes()[0]
+        want = motion.me_fullsearch_torch(cur, ref, BLOCK, SEARCH, metric)
+        if not (mv.is_cuda and got.pixel_format() == PixelFormat.RGBA
+                and torch.equal(mv, want)):
+            fail(f"{key} {res}: the kernel's MV map differs from the plain "
+                 f"version's ({int((mv != want).any(-1).sum())} blocks)")
+        parts.append(f"{key} {metric} {res} {tuple(mv.shape)} equal, "
+                     f"launches {motion.launches}")
+    # a reference shifted by a known vector comes back as that vector
+    dx, dy = -7, 5
+    base_ref = me_frames["1080p"][1]
+    shifted = torch.roll(base_ref, (dy, dx), dims=(0, 1)).contiguous()
+    want_x = int(np.rint((dx / 32 * 0.5 + 0.5) * 255))
+    want_y = int(np.rint((dy / 32 * 0.5 + 0.5) * 255))
+    for metric in ("sad", "ssd"):
+        mv = registry.run_compute_kernel(
+            ctx, [luma_sample(shifted), luma_sample(base_ref)],
+            create_picture_sample((W // BLOCK, H // BLOCK), PixelFormat.RGBA,
+                                  asset_id="mv", workspace_id="w"),
+            registry.default_compute_kernel_from_string(me_names[metric])
+        ).planes()[0][2:-2, 2:-2].cpu()
+        if not (bool((mv[..., 0] == want_x).all())
+                and bool((mv[..., 2] == want_y).all())):
+            fail(f"{metric}: shift ({dx}, {dy}) not recovered on interior "
+                 "blocks")
+    parts.append(f"shift ({dx}, {dy}) recovered on every interior block, sad "
+                 "and ssd")
+    print("[10 motion via run_compute_kernel, exact] " + "; ".join(parts),
+          flush=True)
+
+    # phase 11: times of K3, K4, K5 and their plain versions
+    times["K3"] = timed_ms(lambda: frame.composite_frame_cuda(
+        (W, H), full, PixelFormat.RGBA))
+    plain["K3"] = timed_ms(lambda: composite.composite_stack_torch(
+        PixelFormat.RGBA, (W, H), full, dev), batch=2)
+    for key, metric, res in me_cases:
+        cur, ref = me_frames[res]
+        times[(key, res)] = timed_ms(lambda: motion.me_fullsearch(
+            cur, ref, BLOCK, SEARCH, metric), reps=10, batch=5, warmup=2)
+        plain[(key, res)] = timed_ms(lambda: motion.me_fullsearch_torch(
+            cur, ref, BLOCK, SEARCH, metric), reps=3, batch=1, warmup=1)
+    print("[11 timings, ms] " + "; ".join(
+        f"{k if isinstance(k, str) else ' '.join(k)}: kernel {times[k]:.4f} "
+        f"plain {plain[k]:.4f}" for k in times) + f" | {smi}", flush=True)
+
+    frame_rows = [
+        ("K1", "frame_composite (K1: planar-yuv cameras)", cam_srcs,
+         PixelFormat.y420p, yuv_launches),
+        ("K2", "frame_composite (K2: RGBA overlay)", ov_srcs,
+         PixelFormat.y420p, yuv_launches),
+        ("K3", "frame_composite (K3: RGBA/BGRA target)", full,
+         PixelFormat.RGBA, rgba_launches)]
+    kernels = []
+    for key, name, srcs, fmt, n_launch in frame_rows:
+        bms, by = bound(frame_bytes((W, H), srcs, fmt), 0, 1.0)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
+                        "replaces": REPLACES[key], "launches": n_launch,
+                        "max_abs_err": errs[key], "ms": times[key],
+                        "plain_ms": plain[key], "bound_ms": bms, "bound_by": by,
+                        "library_ms": None})
+    for key, metric, res in me_cases:
+        cur, ref = me_frames[res]
+        h, w = cur.shape
+        terms = pixel_candidates(h, w, motion)
+        # SAD: |c - r| and its sum per term on the non-tensor units; SSD: the
+        # cross term's multiply-add (2 FLOP) on the bf16 tensor cores
+        bms, by = bound(2 * h * w + (h // BLOCK) * (w // BLOCK) * 4, 2 * terms,
+                        NONTENSOR_OPS if metric == "sad" else BF16_FLOPS)
+        kernels.append({"name": f"motion_search ({key}: {metric.upper()}, {res}"
+                                f" {BLOCK}/{SEARCH})",
+                        "route": "cuda",
+                        "source": "swiftvideo_tpu_torch/csrc/motion_search.cu",
+                        "replaces": REPLACES[key],
+                        "launches": me_launches[(key, res)], "max_abs_err": 0,
+                        "ms": times[(key, res)], "plain_ms": plain[(key, res)],
+                        "bound_ms": bms, "bound_by": by, "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

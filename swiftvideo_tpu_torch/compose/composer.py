@@ -25,11 +25,11 @@ from __future__ import annotations
 from concurrent.futures import Future
 from typing import Dict, Optional, Tuple
 
-from swiftvideo_tpu.core import Bus, Clock, TimePoint, asset_filter
-from swiftvideo_tpu.media.audio import AudioFormat
-from swiftvideo_tpu.media.pixel import PixelFormat
-from swiftvideo_tpu.scene import (ComposerCommand, Composition, Element,
-                                  ElementState, Scene)
+from ..core import Bus, Clock, TimePoint, asset_filter
+from ..media.audio import AudioFormat
+from ..media.pixel import PixelFormat
+from ..scene import (ComposerCommand, Composition, Element,
+                     ElementState, Scene)
 
 from ..mix.animator import PictureAnimator, SoundAnimator
 from ..mix.audio_mixer import AudioMixer
@@ -354,7 +354,7 @@ class Composer:
 
     def restore(self, snap: dict) -> None:
         # shared scene-JSON decoders (TimePoint/enum revival + re-tupling)
-        from swiftvideo_tpu.scene import _dec, _mk_state
+        from ..scene import _dec, _mk_state
 
         # bindings first: bind() resets elements to their initial state
         raw_b = snap.get("bindings", [])

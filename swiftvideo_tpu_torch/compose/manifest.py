@@ -1,8 +1,8 @@
-"""Scene-graph manifests — re-exported from swiftvideo_tpu.scene (kept as a
+"""Scene-graph manifests — re-exported from the port's scene.py (kept as a
 standalone module to avoid package-init import cycles with mix.animator)."""
 
-from swiftvideo_tpu.scene import *  # noqa: F401,F403
-from swiftvideo_tpu.scene import (AspectMode, BindCommand, ComposerCommand, Composition,
+from ..scene import *  # noqa: F401,F403
+from ..scene import (AspectMode, BindCommand, ComposerCommand, Composition,
                      EncodeConfig,
                      Element, ElementState, LoadCommand, PicOrigin,
                      PictureAnchor, PlayFileCommand, Scene, SetSceneCommand,

@@ -1,10 +1,12 @@
-// Whole-frame z-ordered composite onto a yuv 4:2:0 target, for Hopper (sm_90a).
+// Whole-frame z-ordered composite onto a yuv 4:2:0 or an RGBA / BGRA target, for
+// Hopper (sm_90a).
 //
-// Replaces the JAX package's two TPU frame kernels:
-//   swiftvideo_tpu/ops/pallas_frame.py::_frame_kernel       (planar-yuv / nv12 / nv21 sources)
-//   swiftvideo_tpu/ops/pallas_frame.py::_frame_kernel_rgba  (RGBA / BGRA overlays)
+// Replaces the JAX package's three TPU frame kernels:
+//   swiftvideo_tpu/ops/pallas_frame.py::_frame_kernel         (planar-yuv / nv12 / nv21 sources)
+//   swiftvideo_tpu/ops/pallas_frame.py::_frame_kernel_rgba    (RGBA / BGRA overlays)
+//   swiftvideo_tpu/ops/pallas_frame.py::_frame_kernel_rgbaout (RGBA / BGRA targets)
 // and computes what they compute: golden.composite_stack (swiftvideo_tpu/ops/golden.py)
-// for y420p, nv12 and nv21 targets.
+// for y420p, nv12, nv21, RGBA and BGRA targets.
 //
 // One launch per frame.  Each thread owns one output pixel of the luma grid
 // (blockIdx.z == 0) or of the half-resolution chroma grid (blockIdx.z == 1, both
@@ -21,6 +23,12 @@
 // a per-source pixel box computed on the host lets threads skip sources that
 // cannot touch them.
 //
+// An RGBA / BGRA target (frame_composite_rgba_kernel) is one grid of [h, w, 4] u8
+// pixels, written interleaved in place: each thread reads its pixel's four bytes,
+// folds every source with golden._composite_rgba_out's blit blend (yuv sources go
+// through YUV2RGB) and writes the four bytes back.  It reads what the yuv kernel
+// reads and writes 4 bytes a pixel: 8.3 MB for a 1080p canvas.
+//
 // Numerics follow golden operation for operation, and this file is compiled with
 // --fmad=false so no multiply-add pair is contracted into an FMA: the mask tests
 // at element seams then land on the same side as golden's, and the kernel agrees
@@ -34,7 +42,7 @@
 namespace {
 
 enum SrcFmt : int { kPlanar = 0, kNv12 = 1, kNv21 = 2, kRgba = 3, kBgra = 4 };
-enum OutFmt : int { kOutPlanar = 0, kOutNv12 = 1, kOutNv21 = 2 };
+enum OutFmt : int { kOutPlanar = 0, kOutNv12 = 1, kOutNv21 = 2, kOutRgba = 3, kOutBgra = 4 };
 
 // One source of the frame.  Layout shared with ops/frame.py (_DESC).
 struct SrcDesc {
@@ -57,6 +65,13 @@ __device__ __forceinline__ float csc(int row, float r, float g, float b) {
   const float* m = kRgb2Yuv[row];
   return m[0] * r + m[1] * g + m[2] * b + m[3];
 }
+
+// ops/color.py YUV2RGB (the inverse of RGB2YUV in float64, rounded to float32),
+// as exact hex literals; tests/test_torch_convert.py holds them to the table.
+__constant__ float kYuv2Rgb[3][4] = {
+    {0x1.00419ap+0f, 0x1.bc2cfcp-11f, 0x1.66d502p+0f, -0x1.670c88p-1f},
+    {0x1.00419ap+0f, -0x1.5e20a8p-2f, -0x1.6da76ep-1f, 0x1.0e5be2p-1f},
+    {0x1.00419ap+0f, 0x1.c62090p+0f, 0x1.03d81ap-10f, -0x1.c66186p-1f}};
 
 __device__ __forceinline__ float u8f(unsigned v) { return __fdiv_rn(static_cast<float>(v), 255.0f); }
 
@@ -227,18 +242,117 @@ __global__ void frame_composite_kernel(const SrcDesc* __restrict__ descs, int n,
   }
 }
 
+// RGBA / BGRA target: golden._composite_rgba_out (the blit blend) per source.
+__global__ void frame_composite_rgba_kernel(const SrcDesc* __restrict__ descs, int n,
+                                            uint8_t* __restrict__ out, int h, int w, int bgra,
+                                            int chained) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  uint8_t* px4 = out + 4 * (y * w + x);
+  const int r_at = bgra ? 2 : 0;  // memory channel of red
+
+  // acc in r, g, b, a order; u8 values; a cleared target is (0, 0, 0, 255)
+  int acc[4] = {0, 0, 0, 255};
+  if (chained) {
+    acc[0] = px4[r_at];
+    acc[1] = px4[1];
+    acc[2] = px4[2 - r_at];
+    acc[3] = px4[3];
+  }
+
+  const float px = __fdiv_rn(static_cast<float>(x), static_cast<float>(w)) * 2.0f - 1.0f;
+  const float py = __fdiv_rn(static_cast<float>(y), static_cast<float>(h)) * 2.0f - 1.0f;
+
+  for (int s = 0; s < n; ++s) {
+    const SrcDesc& d = descs[s];
+    const int* box = d.box[0];
+    if (y < box[0] || y >= box[1] || x < box[2] || x >= box[3]) continue;
+    const float* u = d.u;
+    const float bd_x = u[12] * px + u[13] * py + u[16];
+    const float bd_y = u[14] * px + u[15] * py + u[17];
+    if (!inside(bd_x, bd_y)) continue;  // outside the border: no write
+    const float tx_x = u[0] * px + u[1] * py + u[4];
+    const float tx_y = u[2] * px + u[3] * py + u[5];
+    const float uv_x = u[6] * tx_x + u[7] * tx_y + u[10];
+    const float uv_y = u[8] * tx_x + u[9] * tx_y + u[11];
+    const float op = u[22];
+    const uint8_t* p0 = reinterpret_cast<const uint8_t*>(d.plane[0]);
+
+    if (inside(tx_x, tx_y) && inside(uv_x, uv_y)) {
+      float nw[4];
+      float alpha;
+      if (d.fmt >= kRgba) {
+        const Taps t = taps(uv_x, uv_y, d.dims[0], d.dims[1]);
+        const int ri = d.fmt == kBgra ? 2 : 0;
+        nw[0] = sample(p0, t, d.dims[1], 4, ri);
+        nw[1] = sample(p0, t, d.dims[1], 4, 1);
+        nw[2] = sample(p0, t, d.dims[1], 4, 2 - ri);
+        alpha = sample(p0, t, d.dims[1], 4, 3) * op;
+      } else {
+        const float yv = sample(p0, taps(uv_x, uv_y, d.dims[0], d.dims[1]), d.dims[1], 1, 0);
+        const Taps t = taps(uv_x, uv_y, d.dims[2], d.dims[3]);
+        const uint8_t* p1 = reinterpret_cast<const uint8_t*>(d.plane[1]);
+        float cb, cr;
+        if (d.fmt == kPlanar) {
+          cb = sample(p1, t, d.dims[3], 1, 0);
+          cr = sample(reinterpret_cast<const uint8_t*>(d.plane[2]), t, d.dims[3], 1, 0);
+        } else {
+          const int src_cb = d.fmt == kNv21 ? 1 : 0;
+          cb = sample(p1, t, d.dims[3], 2, src_cb);
+          cr = sample(p1, t, d.dims[3], 2, 1 - src_cb);
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float* m = kYuv2Rgb[k];
+          nw[k] = m[0] * yv + m[1] * cb + m[2] * cr + m[3];
+        }
+        alpha = op;
+      }
+      nw[3] = 1.0f;
+      const float keep = 1.0f - alpha;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] = quant(u8f(acc[k]) * keep + nw[k] * alpha);
+    } else {
+      // border only: the fill colour, alpha channel 1
+      const float a_fill = op * u[21];
+      const float keep = 1.0f - a_fill;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float fill = k < 3 ? u[18 + k] : 1.0f;
+        const float filled = u8f(acc[k]) * keep + fill * a_fill;
+        acc[k] = quant(fminf(fmaxf(filled, 0.0f), 1.0f));
+      }
+    }
+  }
+
+  px4[r_at] = static_cast<uint8_t>(acc[0]);
+  px4[1] = static_cast<uint8_t>(acc[1]);
+  px4[2 - r_at] = static_cast<uint8_t>(acc[2]);
+  px4[3] = static_cast<uint8_t>(acc[3]);
+}
+
 }  // namespace
 
 // Composite n sources (descs: device array of SrcDesc) onto an h x w target.
 // out_fmt 0: out0 = Y, out1 = Cb, out2 = Cr; 1 / 2: out0 = Y, out1 = interleaved
-// nv12 / nv21 chroma.  chained != 0 starts from the values in the outputs instead
-// of the cleared frame.  Launches on `stream` and returns cudaGetLastError().
+// nv12 / nv21 chroma; 3 / 4: out0 = interleaved [h, w, 4] RGBA / BGRA.
+// chained != 0 starts from the values in the outputs instead of the cleared frame.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int sv_frame_composite(const void* descs, int n, void* out0, void* out1, void* out2,
                                   int h, int w, int out_fmt, int chained, void* stream) {
   const dim3 block(32, 8, 1);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, 2);
-  frame_composite_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const SrcDesc*>(descs), n, static_cast<uint8_t*>(out0),
-      static_cast<uint8_t*>(out1), static_cast<uint8_t*>(out2), h, w, out_fmt, chained);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_fmt == kOutRgba || out_fmt == kOutBgra) {
+    const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, 1);
+    frame_composite_rgba_kernel<<<grid, block, 0, st>>>(static_cast<const SrcDesc*>(descs), n,
+                                                        static_cast<uint8_t*>(out0), h, w,
+                                                        out_fmt == kOutBgra, chained);
+  } else {
+    const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, 2);
+    frame_composite_kernel<<<grid, block, 0, st>>>(
+        static_cast<const SrcDesc*>(descs), n, static_cast<uint8_t*>(out0),
+        static_cast<uint8_t*>(out1), static_cast<uint8_t*>(out2), h, w, out_fmt, chained);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,12 +21,12 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from swiftvideo_tpu.scene import (AspectMode, ElementState, PicOrigin,
-                                PictureAnchor)
-from swiftvideo_tpu.core import Clock, EventBox, TimePoint, Tx, rescale, seconds
-from swiftvideo_tpu.media.audio import AudioSample
-from swiftvideo_tpu.media.picture import PictureSample
-from swiftvideo_tpu.utils import matrix as m4
+from ..scene import (AspectMode, ElementState, PicOrigin,
+                     PictureAnchor)
+from ..core import Clock, EventBox, TimePoint, Tx, rescale, seconds
+from ..media.audio import AudioSample
+from ..media.picture import PictureSample
+from ..utils import matrix as m4
 
 
 @dataclass(frozen=True)

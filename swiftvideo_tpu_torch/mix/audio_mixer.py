@@ -36,13 +36,13 @@ import numpy as np
 
 import torch
 
-from swiftvideo_tpu.core import (Clock, ClockTickEvent, EventBox, Source,
-                                 StatsReport, TimePoint, clamp_time, maximum,
-                                 rescale)
-from swiftvideo_tpu.media.audio import (AudioFormat, AudioSample,
-                                        bytes_per_sample, number_of_buffers)
-from swiftvideo_tpu.media.coded import MediaConstituent
-from swiftvideo_tpu.utils.matrix import audio_position_gain
+from ..core import (Clock, ClockTickEvent, EventBox, Source,
+                    StatsReport, TimePoint, clamp_time, maximum,
+                    rescale)
+from ..media.audio import (AudioFormat, AudioSample,
+                           bytes_per_sample, number_of_buffers)
+from ..media.coded import MediaConstituent
+from ..utils.matrix import audio_position_gain
 
 from ..ops.audio import (apply_mix_s16, channel_gains, mix_s16_device,
                          mix_s16_device_windowed)

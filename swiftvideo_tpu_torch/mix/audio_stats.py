@@ -7,8 +7,8 @@ for s16/f32, planar or interleaved.  Vectorized via ops.audio.
 
 from __future__ import annotations
 
-from swiftvideo_tpu.core import EventBox, Tx
-from swiftvideo_tpu.media.audio import AudioSample
+from ..core import EventBox, Tx
+from ..media.audio import AudioSample
 from ..ops.audio import audio_peak_rms
 
 

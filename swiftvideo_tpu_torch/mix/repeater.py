@@ -16,7 +16,7 @@ repeater, scaling with source count in a composer wall.)
 from __future__ import annotations
 
 import threading
-from swiftvideo_tpu.core import AsyncTx, Clock, EventBox, TimePoint, rescale
+from ..core import AsyncTx, Clock, EventBox, TimePoint, rescale
 
 
 class Repeater(AsyncTx):

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 from typing import Optional
 
-from swiftvideo_tpu.core import EventBox, TimePoint, Tx, rescale
-from swiftvideo_tpu.media.audio import AudioSample
+from ..core import EventBox, TimePoint, Tx, rescale
+from ..media.audio import AudioSample
 from ..ops.resample import (PolyphaseResampler, from_planar_f32, map_channels,
                             to_planar_f32)
 

@@ -8,9 +8,10 @@ per-revision sample maps (fresh frames win; the previous generation repeats
 a source's last frame when no new one arrived — mix.video.swift:105-114),
 z-sorts them, and composites the whole frame in one call.
 
-On a cuda context with a y420p / nv12 / nv21 target that call is one
-launch of the frame kernel (ops/frame.py); every other target, and a cpu
-context, takes the plain torch version (ops/composite.py).  Emitted frames
+On a cuda context (the default) with a y420p / nv12 / nv21 / RGBA / BGRA
+target that call is one launch of the frame kernel (ops/frame.py); a
+y422p / y444p target, and a cpu context, take the plain torch version
+(ops/composite.py).  Emitted frames
 hold tensors on the context's device (``BufferType.gpu`` on the card).  pts
 comes from the clock tick, never from device completion.
 """
@@ -23,10 +24,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from swiftvideo_tpu.core import (Clock, ClockTickEvent, EventBox, Source,
-                                 StatsReport, TimePoint, rescale)
-from swiftvideo_tpu.media.picture import BufferType, ImageBuffer, PictureSample
-from swiftvideo_tpu.media.pixel import PixelFormat, planes_for_format
+from ..core import (Clock, ClockTickEvent, EventBox, Source,
+                    StatsReport, TimePoint, rescale)
+from ..media.picture import BufferType, ImageBuffer, PictureSample
+from ..media.pixel import PixelFormat, planes_for_format
 
 from ..ops.registry import (ComputeContext, composite_frame,
                             make_compute_context, to_device)

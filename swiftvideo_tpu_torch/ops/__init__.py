@@ -1,9 +1,9 @@
-"""Device compute: kernel registry, plain torch composite, Hopper kernels."""
+"""Device compute: kernel registry, plain torch versions, Hopper kernels."""
 
 from .color import RGB2YUV, YUV2RGB, rgb_to_yuv, yuv_to_rgb
 from .uniforms import (UNIFORM_WIDTH, ImageUniforms, identity_uniforms,
                        rect_uniforms)
-from . import composite, frame
+from . import composite, frame, motion
 from .registry import (ComputeContext, ComputeError, ComputeKernel,
                        apply_compute_image, begin_compute_pass,
                        default_compute_kernel_from_string, end_compute_pass,
@@ -15,7 +15,7 @@ from .barriers import (GPUBarrierAudioDownload, GPUBarrierAudioUpload,
 __all__ = [
     "RGB2YUV", "YUV2RGB", "rgb_to_yuv", "yuv_to_rgb",
     "ImageUniforms", "UNIFORM_WIDTH", "identity_uniforms", "rect_uniforms",
-    "composite", "frame",
+    "composite", "frame", "motion",
     "ComputeContext", "ComputeError", "ComputeKernel",
     "make_compute_context", "has_available_compute_devices",
     "default_compute_kernel_from_string", "run_compute_kernel",

@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from swiftvideo_tpu.core import EventBox, Tx
-from swiftvideo_tpu.media.audio import AudioSample
-from swiftvideo_tpu.media.picture import BufferType, PictureSample
+from ..core import EventBox, Tx
+from ..media.audio import AudioSample
+from ..media.picture import BufferType, PictureSample
 
 from .registry import ComputeContext
 

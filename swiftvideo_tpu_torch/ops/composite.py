@@ -5,8 +5,8 @@ This is ``swiftvideo_tpu/ops/golden.py`` (clear, z-ordered fold,
 family A and family B blends, u8 quantize after every source) written as
 whole-grid torch ops on an explicit device.  It is the reference the
 frame kernel (ops/frame.py) is held against, the CPU path of the port, and
-on the card the route for targets the kernel does not take (RGBA/BGRA,
-y422p, y444p).
+on the card the route for targets the kernel does not take (y422p,
+y444p).
 
 Bit-exactness with golden rests on doing the same float32 operations in
 the same order, each rounded on its own:
@@ -33,8 +33,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from swiftvideo_tpu.media.pixel import (PixelFormat, num_planes,
-                                        plane_array_shape)
+from ..media.pixel import (PixelFormat, num_planes,
+                           plane_array_shape)
 
 from .color import RGB2YUV, YUV2RGB
 

@@ -1,18 +1,19 @@
 """Whole-frame composite on the card: the hand-written Hopper kernel.
 
 ``composite_frame_cuda`` composites every z-sorted source of a frame onto a
-y420p / nv12 / nv21 target in one launch of ``csrc/frame_composite.cu``.
-It replaces both TPU frame kernels of the JAX package,
-``pallas_frame.py::_frame_kernel`` (planar-yuv sources) and
-``::_frame_kernel_rgba`` (RGBA/BGRA overlays), and computes
+y420p / nv12 / nv21 or RGBA / BGRA target in one launch of
+``csrc/frame_composite.cu``.  It replaces the three TPU frame kernels of
+the JAX package, ``pallas_frame.py::_frame_kernel`` (planar-yuv sources),
+``::_frame_kernel_rgba`` (RGBA/BGRA overlays) and
+``::_frame_kernel_rgbaout`` (RGBA/BGRA targets), and computes
 ``golden.composite_stack``.  None of the TPU kernels' planning comes over
 (row-pair views, scale classes, hat matrices, edge pads, VMEM gates, runs
-of one source shape): sources of any format, scale or rotation share the
-launch.
+of one source shape, the exact 2:1 limit of the RGBA-target kernel):
+sources of any format, scale or rotation share the launch.
 
 The kernel is built on first use with ``nvcc`` into ``build/`` inside this
-package (a plain C interface, loaded with ctypes) and launches on the
-current stream.  CPU tensors take the plain version
+package (ops/nvcc.py: a plain C interface, loaded with ctypes) and launches
+on the current stream.  CPU tensors take the plain version
 (ops/composite.composite_stack_torch); CUDA tensors take the kernel or
 raise.  ``launches`` counts kernel launches.
 """
@@ -20,33 +21,24 @@ raise.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from swiftvideo_tpu.media.pixel import (PixelFormat, num_planes,
-                                        plane_array_shape)
+from ..media.pixel import PixelFormat, num_planes, plane_array_shape
 
+from . import nvcc
 from .composite import composite_stack_torch, packed
 
 # kernel launches since import; a plain integer so a run can show that its
 # frames went through the kernel
 launches = 0
 
-KERNEL_TARGETS = (PixelFormat.y420p, PixelFormat.nv12, PixelFormat.nv21)
+KERNEL_TARGETS = (PixelFormat.y420p, PixelFormat.nv12, PixelFormat.nv21,
+                  PixelFormat.RGBA, PixelFormat.BGRA)
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "frame_composite.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
+SOURCE = nvcc.CSRC / "frame_composite.cu"
 
 # one SrcDesc of frame_composite.cu (192 bytes, same field order)
 _DESC = np.dtype([("plane", "<u8", 3), ("fmt", "<i4"), ("dims", "<i4", 4),
@@ -56,37 +48,18 @@ assert _DESC.itemsize == 192
 _SRC_CODES = {PixelFormat.y420p: 0, PixelFormat.y422p: 0, PixelFormat.y444p: 0,
               PixelFormat.nv12: 1, PixelFormat.nv21: 2,
               PixelFormat.RGBA: 3, PixelFormat.BGRA: 4}
-_OUT_CODES = {PixelFormat.y420p: 0, PixelFormat.nv12: 1, PixelFormat.nv21: 2}
-
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""
+_OUT_CODES = {PixelFormat.y420p: 0, PixelFormat.nv12: 1, PixelFormat.nv21: 2,
+              PixelFormat.RGBA: 3, PixelFormat.BGRA: 4}
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source/flags digest) and load the kernel library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"frame_composite_{digest}.so"
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = nvcc.load(SOURCE)
     fn = lib.sv_frame_composite
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _lib = lib
     return lib
 
 
@@ -181,9 +154,9 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
                          target=None) -> List[torch.Tensor]:
     """Clear (or start from ``target``'s planes) and fold ``sources`` —
     [(planes, fmt, ImageUniforms or packed [29])], z-sorted — onto a
-    ``size`` = (w, h) y420p / nv12 / nv21 frame.  Returns the target's u8
-    planes on the sources' device.  ``device`` names it when there are no
-    sources."""
+    ``size`` = (w, h) y420p / nv12 / nv21 / RGBA / BGRA frame.  Returns the
+    target's u8 planes on the sources' device.  ``device`` names it when
+    there are no sources."""
     global launches
     if out_fmt not in KERNEL_TARGETS:
         raise ValueError(f"frame kernel writes no {out_fmt} target")

@@ -5,11 +5,13 @@ Reference semantics: SwiftVideo's ``Sources/SwiftVideo/compute.swift``
 applyComputeImage :145-170), as ported by ``swiftvideo_tpu/ops/registry.py``.
 
 Kernels keep the ``img_<inFmt>_<outFmt>`` naming.  A context holds an
-explicit ``torch.device``: on ``cuda`` a composite onto a y420p / nv12 /
-nv21 target runs the frame kernel (ops/frame.py), every other target the
-plain torch version (ops/composite.py); on ``cpu`` everything runs the
-plain version.  ``custom`` kernels are user-registered callables
-(compute.swift .custom case).  Motion estimation is not yet ported.
+explicit ``torch.device``, the card unless the caller asks for the CPU: on
+``cuda`` a composite onto a y420p / nv12 / nv21 / RGBA / BGRA target runs
+the frame kernel (ops/frame.py), a y422p / y444p target the plain torch
+version (ops/composite.py); on ``cpu`` everything runs the plain version.
+``me_fullsearch`` / ``me_fullsearch_ssd`` run the motion search
+(ops/motion.py); ``me_fullsearch_pyramid`` is not yet ported.  ``custom``
+kernels are user-registered callables (compute.swift .custom case).
 """
 
 from __future__ import annotations
@@ -20,10 +22,10 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from swiftvideo_tpu.media.picture import PictureSample
-from swiftvideo_tpu.media.pixel import PixelFormat
+from ..media.picture import BufferType, ImageBuffer, PictureSample
+from ..media.pixel import PixelFormat, planes_for_format
 
-from . import composite, frame
+from . import composite, frame, motion
 from .uniforms import ImageUniforms
 
 _FMT_NAMES = {
@@ -84,7 +86,7 @@ class ComputeContext:
     """Device context (makeComputeContext, compute.swift:121): the torch
     device every op of the context runs on, plus user kernels."""
 
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device
     logger: Optional[object] = None
     custom_kernels: Dict[str, Callable] = field(default_factory=dict)
     ident: str = field(default_factory=lambda: str(uuid.uuid4()))
@@ -103,9 +105,10 @@ def has_available_compute_devices() -> bool:
 
 
 def make_compute_context(device=None) -> ComputeContext:
-    """A context on ``device`` (default cpu).  A cuda device needs a card:
-    there is no silent downgrade to the CPU."""
-    device = torch.device("cpu" if device is None else device)
+    """A context on ``device``, by default the current CUDA card.  A cuda
+    device needs a card: there is no silent downgrade to the CPU, which a
+    caller asks for with ``"cpu"``."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise ComputeError("deviceNotAvailable: no CUDA device")
@@ -166,8 +169,27 @@ def run_compute_kernel(ctx: ComputeContext, images, target: PictureSample,
         planes = composite.clear_planes(target.pixel_format(), target.size(),
                                         ctx.device)
         return target.with_(img=target.img.with_buffers(planes))
+    if name == "me_fullsearch_pyramid":
+        raise ComputeError(f"{name}: the two-stage motion search is not yet "
+                           "ported")
     if name in _MOTION:
-        raise ComputeError(f"{name}: motion estimation is not yet ported")
+        # images = [current, reference] luma samples; an RGBA MV map at
+        # block resolution comes back (kernels.metal:206-267)
+        if len(images) < 2:
+            raise ComputeError("badInputData")
+        cur, ref = to_device([images[0].planes()[0], images[1].planes()[0]],
+                             ctx.device)
+        mv = motion.me_fullsearch(
+            cur, ref, metric="ssd" if name.endswith("_ssd") else "sad")
+        h, w = mv.shape[:2]
+        img = ImageBuffer(pixel_format=PixelFormat.RGBA,
+                          buffer_type=(BufferType.gpu if ctx.kind == "cuda"
+                                       else BufferType.cpu),
+                          size=(w, h),
+                          planes=tuple(planes_for_format(PixelFormat.RGBA,
+                                                         (w, h))),
+                          buffers=(mv,))
+        return target.with_(img=img)
     if name == "snd_s16i_s16i":
         raise ComputeError("snd_s16i_s16i runs via ops.audio.mix_s16_device")
     if parts[0] == "img":

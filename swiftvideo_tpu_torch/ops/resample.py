@@ -28,7 +28,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from swiftvideo_tpu.media.audio import is_planar
+from ..media.audio import is_planar
 
 
 @lru_cache(maxsize=32)

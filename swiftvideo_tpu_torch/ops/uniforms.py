@@ -19,7 +19,7 @@ from typing import Tuple
 
 import numpy as np
 
-from swiftvideo_tpu.utils import matrix as m4
+from ..utils import matrix as m4
 
 # packed layout: 6 affine coeffs each for transform/texture/border
 # (a, b, c, d, tx, ty meaning [[a, b, tx], [c, d, ty]]) + fill rgba +

@@ -3,9 +3,11 @@
 The plain torch version (swiftvideo_tpu_torch/ops/composite.py) against
 ``golden.composite_stack``, and the frame wrapper (ops/frame.py, which
 takes the plain version for CPU tensors) against the Pallas frame kernel in
-interpret mode.  Inputs come from ``np.random.default_rng`` and reach both
-packages through ``swiftvideo_tpu_torch.interop``.  Tolerance: at most
-1 LSB max abs error per plane.
+interpret mode.  Inputs come from ``np.random.default_rng`` and are built
+as the JAX package's objects; they reach the port through
+``swiftvideo_tpu_torch.interop``, since the two packages' pixel formats and
+samples are distinct types.  Tolerance: at most 1 LSB max abs error per
+plane.
 """
 
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ from swiftvideo_tpu.ops import registry as jax_registry
 from swiftvideo_tpu.ops.pallas_frame import composite_frame_pallas
 from swiftvideo_tpu.utils import matrix as m4
 from swiftvideo_tpu_torch import interop
+from swiftvideo_tpu_torch.media import PixelFormat as PortPF
 from swiftvideo_tpu_torch.ops import composite, frame, registry
 from swiftvideo_tpu_torch.ops import uniforms as port_uniforms
 
@@ -91,7 +94,8 @@ def _check(got, ref):
 
 def _plain(out_fmt, srcs):
     return composite.composite_stack_torch(
-        out_fmt, (W, H), interop.to_port_sources(srcs, CPU), CPU)
+        interop.pixel_format(out_fmt), (W, H),
+        interop.to_port_sources(srcs, CPU), CPU)
 
 
 def _golden(out_fmt, srcs):
@@ -150,7 +154,7 @@ def test_frame_wrapper_matches_pallas_interpret(case):
                                  out_fmt=out_fmt)
     launches = frame.launches
     got = frame.composite_frame_cuda((W, H), interop.to_port_sources(
-        jax_srcs, CPU), out_fmt)
+        jax_srcs, CPU), interop.pixel_format(out_fmt))
     assert frame.launches == launches  # CPU tensors take the plain version
     _check(got, [np.asarray(r) for r in ref])
 
@@ -193,7 +197,7 @@ def test_border_box_covers_border_mask(seed):
         rotation=rng.uniform(-3.2, 3.2),
         border=(x - 5, y - 3, rng.uniform(10, W), rng.uniform(10, H)))
     planes = [torch.from_numpy(p) for p in _planes(rng, PF.y420p, W, H)]
-    table = frame.descriptors((W, H), [(planes, PF.y420p, uni)])
+    table = frame.descriptors((W, H), [(planes, PortPF.y420p, uni)])
     p = uni.pack()
     for g, (gh, gw) in enumerate(((H, W), (H // 2, W // 2))):
         border = composite._masks(p, gh, gw, CPU)[0].numpy()
@@ -221,7 +225,8 @@ def test_descriptor_table():
 
 def test_run_compute_kernel_matches_jax_registry():
     """applyComputeImage through the port's registry (plain route on the
-    CPU) against the JAX registry's golden route."""
+    CPU) against the JAX registry's golden route; the samples reach the port
+    through interop."""
     rng = np.random.default_rng(5)
     image = create_picture_sample((W // 2, H // 2), PF.y420p, asset_id="a",
                                   workspace_id="w")
@@ -234,17 +239,19 @@ def test_run_compute_kernel_matches_jax_registry():
                                    workspace_id="w")
     for p, v in zip(target.planes(), _planes(rng, PF.nv12, W, H)):
         p[:] = v
-    ours = registry.apply_compute_image(registry.make_compute_context(),
-                                        image, target)
+    ctx = registry.make_compute_context("cpu")
+    port_image = interop.picture_sample(image)
+    port_target = interop.picture_sample(target)
+    ours = registry.apply_compute_image(ctx, port_image, port_target)
     theirs = jax_registry.apply_compute_image(jax_context("golden"), image,
                                               target)
     _check(ours.planes(), [np.asarray(p) for p in theirs.planes()])
     cleared = registry.run_compute_kernel(
-        registry.make_compute_context(), [], target,
-        registry.ComputeKernel.clear(PF.nv12))
+        ctx, [], port_target, registry.ComputeKernel.clear(PortPF.nv12))
     assert int(cleared.planes()[0].max()) == 0
     assert set(np.unique(cleared.planes()[1].numpy())) == {128}
     with pytest.raises(registry.ComputeError, match="not yet ported"):
         registry.run_compute_kernel(
-            registry.make_compute_context(), [image, image], target,
-            registry.default_compute_kernel_from_string("me_fullsearch"))
+            ctx, [port_image, port_image], port_target,
+            registry.default_compute_kernel_from_string(
+                "me_fullsearch_pyramid"))

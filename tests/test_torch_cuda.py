@@ -1,16 +1,18 @@
-"""The port's kernels on an NVIDIA card: the frame kernel against the plain
-torch version on the same CUDA tensors, and the audio folds against the
-host loop.  Marked ``cuda``; they skip where there is no card.  Run them on
-the card with ``pytest -m cuda tests/``.  Tolerance: 1 LSB for pixels
-(the kernel is built to be bit-exact, and this checks that too), exact for
-audio."""
+"""The port's kernels on an NVIDIA card: the frame kernel (yuv and RGBA /
+BGRA targets) and the motion search (SAD and SSD) against their plain torch
+versions on the same CUDA tensors, and the audio folds against the host
+loop.  Marked ``cuda``; they skip where there is no card.  Run them on the
+card with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+Tolerance: 1 LSB for pixels (the kernel is built to be bit-exact, and this
+checks that too), exact for motion vectors and audio.  Imports only the
+port."""
 
 import numpy as np
 import pytest
 import torch
 
-from swiftvideo_tpu.media import PixelFormat as PF
-from swiftvideo_tpu_torch.ops import audio, composite, frame
+from swiftvideo_tpu_torch.media import PixelFormat as PF
+from swiftvideo_tpu_torch.ops import audio, composite, frame, motion
 from swiftvideo_tpu_torch.ops.uniforms import rect_uniforms
 
 pytestmark = pytest.mark.cuda
@@ -67,8 +69,8 @@ def _scene(rng, device, w, h):
 
 
 @pytest.mark.parametrize("size", [(320, 180), (1920, 1080)])
-@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.nv12, PF.nv21],
-                         ids=lambda f: f.value)
+@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.nv12, PF.nv21, PF.RGBA,
+                                     PF.BGRA], ids=lambda f: f.value)
 def test_kernel_matches_plain_on_card(card, size, out_fmt):
     srcs = _scene(np.random.default_rng(1), card, *size)
     launches = frame.launches
@@ -81,15 +83,63 @@ def test_kernel_matches_plain_on_card(card, size, out_fmt):
         assert int((g.int() - r.int()).abs().max()) <= TOL
 
 
-def test_kernel_chained_target_on_card(card):
+@pytest.mark.parametrize("out_fmt", [PF.nv21, PF.BGRA], ids=lambda f: f.value)
+def test_kernel_chained_target_on_card(card, out_fmt):
     size = (320, 180)
     srcs = _scene(np.random.default_rng(2), card, *size)
-    base = composite.composite_stack_torch(PF.nv21, size, srcs[:3], card)
-    got = frame.composite_frame_cuda(size, srcs[3:], PF.nv21, target=base)
-    ref = composite.composite_stack_torch(PF.nv21, size, srcs[3:], card,
+    base = composite.composite_stack_torch(out_fmt, size, srcs[:3], card)
+    got = frame.composite_frame_cuda(size, srcs[3:], out_fmt, target=base)
+    ref = composite.composite_stack_torch(out_fmt, size, srcs[3:], card,
                                           target=base)
     for g, r in zip(got, ref):
         assert int((g.int() - r.int()).abs().max()) <= TOL
+
+
+def test_rgba_kernel_config1_on_card(card):
+    """A 1280x720 y420p picture scaled into a 640x360 RGBA canvas."""
+    src = _planes(np.random.default_rng(4), PF.y420p, 1280, 720, card)
+    srcs = [(src, PF.y420p, rect_uniforms((1280, 720), (640, 360), x=0, y=0,
+                                          w=640, h=360))]
+    got = frame.composite_frame_cuda((640, 360), srcs, PF.RGBA)
+    ref = composite.composite_stack_torch(PF.RGBA, (640, 360), srcs, card)
+    assert got[0].shape == (360, 640, 4)
+    assert int((got[0].int() - ref[0].int()).abs().max()) <= TOL
+
+
+def _frames(rng, h, w, device):
+    ref = rng.integers(0, 255, (h, w), np.int64).astype(np.uint8)
+    cur = np.clip(ref.astype(int) + rng.integers(-12, 12, ref.shape), 0,
+                  255).astype(np.uint8)
+    return (torch.from_numpy(cur).to(device), torch.from_numpy(ref).to(device))
+
+
+@pytest.mark.parametrize("metric", motion.METRICS)
+@pytest.mark.parametrize("geom", [(96, 128, 64), (120, 128, 32), (48, 80, 64),
+                                  (64, 64, 16), (1080, 1920, 64)],
+                         ids=lambda g: "x".join(map(str, g)))
+def test_motion_kernel_matches_plain_on_card(card, geom, metric):
+    h, w, search = geom
+    cur, ref = _frames(np.random.default_rng(h + w + search), h, w, card)
+    launches = motion.launches
+    got = motion.me_fullsearch(cur, ref, 16, search, metric)
+    assert motion.launches == launches + 1
+    want = motion.me_fullsearch_torch(cur, ref, 16, search, metric)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.shape == (h // 16, w // 16, 4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", motion.METRICS)
+def test_motion_kernel_recovers_a_shift_on_card(card, metric):
+    rng = np.random.default_rng(9)
+    ref = rng.integers(0, 255, (256, 256), np.int64).astype(np.uint8)
+    cur = np.roll(ref, (5, -7), axis=(0, 1))
+    out = motion.me_fullsearch(torch.from_numpy(cur).to(card),
+                               torch.from_numpy(ref).to(card), 16, 64,
+                               metric).cpu().numpy()
+    inner = out[2:-2, 2:-2]
+    assert np.all(inner[..., 0] == round((-7 / 32 * 0.5 + 0.5) * 255))
+    assert np.all(inner[..., 2] == round((5 / 32 * 0.5 + 0.5) * 255))
 
 
 def test_audio_folds_equal_host_on_card(card):

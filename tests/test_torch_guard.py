@@ -1,17 +1,20 @@
-"""Guards of the port: it never loads JAX or triton, a cuda context needs a
-card, and the frame wrapper raises on inputs it does not take instead of
-falling back."""
+"""Guards of the port: it never imports or loads JAX, triton or the JAX
+package, the card is the default device and a cuda context needs one, and
+the frame wrapper raises on inputs it does not take instead of falling
+back."""
 
+import ast
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from swiftvideo_tpu.media import PixelFormat
+from swiftvideo_tpu_torch.media import PixelFormat
 from swiftvideo_tpu_torch.ops import composite, frame, registry
 from swiftvideo_tpu_torch.ops.uniforms import rect_uniforms
 
@@ -22,9 +25,9 @@ import json, sys
 import numpy as np
 import swiftvideo_tpu_torch
 import swiftvideo_tpu_torch.interop
-from swiftvideo_tpu.core import Bus, EventBox, StepClock, TimePoint, Tx
-from swiftvideo_tpu.media import PixelFormat, create_picture_sample
-from swiftvideo_tpu.scene import Composition, Element, ElementState, Scene
+from swiftvideo_tpu_torch.core import Bus, EventBox, StepClock, TimePoint, Tx
+from swiftvideo_tpu_torch.media import PixelFormat, create_picture_sample
+from swiftvideo_tpu_torch.scene import Composition, Element, ElementState, Scene
 from swiftvideo_tpu_torch.compose import Composer
 from swiftvideo_tpu_torch.ops import make_compute_context
 
@@ -35,7 +38,7 @@ comp = Composition(name="c", canvas_size=(64, 36), scenes=(Scene(
         size=(32.0, 18.0))),)),), initial_scene="m")
 composer = Composer(clock, workspace_id="w", composition=comp,
                     audio_bus=Bus(clock), picture_bus=pictures,
-                    compute_context=make_compute_context())
+                    compute_context=make_compute_context("cpu"))
 frames = []
 sub = pictures.subscribe(Tx(lambda s: (frames.append(s), EventBox.just(s))[1]
                             if s.asset_id() == "c" else EventBox.nothing(None)))
@@ -51,8 +54,36 @@ print(json.dumps({"frames": len(frames),
                   "jax": any(m == "jax" or m.startswith("jax.")
                              for m in sys.modules),
                   "triton": any(m == "triton" or m.startswith("triton.")
-                                for m in sys.modules)}))
+                                for m in sys.modules),
+                  "jax_package": sorted(
+                      m for m in sys.modules if m == "swiftvideo_tpu"
+                      or m.startswith("swiftvideo_tpu."))}))
 """
+
+_BANNED = ("jax", "triton", "swiftvideo_tpu")
+
+
+def _port_files():
+    root = Path(REPO)
+    return sorted((root / "swiftvideo_tpu_torch").rglob("*.py")) + [
+        root / "chip_smoke.py"]
+
+
+def test_port_sources_import_no_jax_triton_or_jax_package():
+    """An AST scan of every import in the port and in chip_smoke.py."""
+    found = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{path.name}:{node.lineno} {n}" for n in names
+                      if n.split(".")[0] in _BANNED]
+    assert len(_port_files()) > 30
+    assert found == []
 
 
 def test_port_never_imports_jax_or_triton():
@@ -65,13 +96,16 @@ def test_port_never_imports_jax_or_triton():
     assert out["frames"] == 1 and abs(out["y"] - 200) <= 1
     assert out["jax"] is False
     assert out["triton"] is False
+    assert out["jax_package"] == []
 
 
 def test_cuda_context_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(registry.ComputeError, match="deviceNotAvailable"):
         registry.make_compute_context(torch.device("cuda"))
-    assert registry.make_compute_context().kind == "cpu"
+    with pytest.raises(registry.ComputeError, match="deviceNotAvailable"):
+        registry.make_compute_context()
+    assert registry.make_compute_context("cpu").kind == "cpu"
 
 
 def _y420p(dtype=torch.uint8, w=32, h=16):
@@ -90,8 +124,8 @@ _UNI = rect_uniforms((32, 16), (64, 32), x=0, y=0, w=32, h=16)
                        _UNI)], {}, TypeError),
     ("cpu planes, cuda device", [(_y420p(), PixelFormat.y420p, _UNI)],
      {"device": torch.device("cuda")}, ValueError),
-    ("rgba target", [(_y420p(), PixelFormat.y420p, _UNI)],
-     {"out_fmt": PixelFormat.RGBA}, ValueError),
+    ("y422p target", [(_y420p(), PixelFormat.y420p, _UNI)],
+     {"out_fmt": PixelFormat.y422p}, ValueError),
     ("planes do not fit format", [(_y420p()[:2], PixelFormat.y420p, _UNI)],
      {}, ValueError),
     ("packed 4:2:2 source", [([torch.zeros(16, 32, 2, dtype=torch.uint8)],
@@ -116,3 +150,17 @@ def test_frame_wrapper_takes_plain_version_for_cpu_tensors():
     assert [tuple(p.shape) for p in out] == [(32, 64), (16, 32, 2)]
     empty = frame.composite_frame_cuda((64, 32), [], device="cpu")
     assert int(empty[0].max()) == 0 and set(empty[1].unique().tolist()) == {128}
+
+
+@pytest.mark.parametrize("out_fmt", [PixelFormat.RGBA, PixelFormat.BGRA],
+                         ids=lambda f: f.value)
+def test_frame_wrapper_takes_rgba_targets(out_fmt):
+    """RGBA / BGRA targets are the kernel's too: CPU tensors take the plain
+    version, a clear RGBA frame is (0, 0, 0, 255)."""
+    launches, calls = frame.launches, composite.calls
+    out = frame.composite_frame_cuda((64, 32), [(_y420p(), PixelFormat.y420p,
+                                                 _UNI)], out_fmt)
+    assert frame.launches == launches and composite.calls == calls + 1
+    assert [tuple(p.shape) for p in out] == [(32, 64, 4)]
+    empty = frame.composite_frame_cuda((64, 32), [], out_fmt, device="cpu")
+    assert empty[0][..., 3].min() == 255 and int(empty[0][..., :3].max()) == 0
