@@ -1,19 +1,27 @@
-"""Whole-frame composite on the card: the hand-written Hopper kernel.
+"""Whole-frame composite on the card: the hand-written Hopper kernels.
 
 ``composite_frame_cuda`` composites every z-sorted source of a frame onto a
-y420p / nv12 / nv21 or RGBA / BGRA target in one launch of
-``csrc/frame_composite.cu``.  It replaces the three TPU frame kernels of
-the JAX package, ``pallas_frame.py::_frame_kernel`` (planar-yuv sources),
+y420p / nv12 / nv21 or RGBA / BGRA target with ``csrc/frame_composite.cu``.
+It replaces the three TPU frame kernels of the JAX package,
+``pallas_frame.py::_frame_kernel`` (planar-yuv sources),
 ``::_frame_kernel_rgba`` (RGBA/BGRA overlays) and
 ``::_frame_kernel_rgbaout`` (RGBA/BGRA targets), and computes
 ``golden.composite_stack``.  None of the TPU kernels' planning comes over
 (row-pair views, scale classes, hat matrices, edge pads, VMEM gates, runs
 of one source shape, the exact 2:1 limit of the RGBA-target kernel):
-sources of any format, scale or rotation share the launch.
+sources of any format, scale or rotation share a launch.
 
-The kernel is built on first use with ``nvcc`` into ``build/`` inside this
-package (ops/nvcc.py: a plain C interface, loaded with ctypes) and launches
-on the current stream.  CPU tensors take the plain version
+Launch path: the per-source table (``descriptors``, one 192-byte row per
+source) and a 64-byte header are packed on the host into one
+``FrameParams`` (``pack_params``) that the kernel takes by value as a
+``__grid_constant__`` parameter, so a call neither pins nor copies a table.
+One launch takes up to ``CAPACITY`` sources; a longer stack runs as
+consecutive launches onto the same target, each after the first in chained
+mode (``launch_plan``).
+
+The kernels are built on first use with ``nvcc`` into ``build/`` inside
+this package (ops/nvcc.py: a plain C interface, loaded with ctypes) and
+launch on the current stream.  CPU tensors take the plain version
 (ops/composite.composite_stack_torch); CUDA tensors take the kernel or
 raise.  ``launches`` counts kernel launches.
 """
@@ -21,6 +29,8 @@ raise.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
+from functools import lru_cache
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -40,10 +50,19 @@ KERNEL_TARGETS = (PixelFormat.y420p, PixelFormat.nv12, PixelFormat.nv21,
 
 SOURCE = nvcc.CSRC / "frame_composite.cu"
 
+# sources per launch (frame_composite.cu kCapacity)
+CAPACITY = 32
+
 # one SrcDesc of frame_composite.cu (192 bytes, same field order)
 _DESC = np.dtype([("plane", "<u8", 3), ("fmt", "<i4"), ("dims", "<i4", 4),
                   ("box", "<i4", (2, 4)), ("u", "<f4", 29)])
 assert _DESC.itemsize == 192
+# FrameParams: the 64-byte header, then CAPACITY SrcDesc rows
+_HEADER = np.dtype([("out", "<u8", 3), ("n", "<i4"), ("h", "<i4"),
+                    ("w", "<i4"), ("out_fmt", "<i4"), ("chained", "<i4"),
+                    ("pad", "<i4", 5)])
+assert _HEADER.itemsize == 64
+_PARAMS = np.dtype([("head", _HEADER), ("src", _DESC, CAPACITY)])
 
 _SRC_CODES = {PixelFormat.y420p: 0, PixelFormat.y422p: 0, PixelFormat.y444p: 0,
               PixelFormat.nv12: 1, PixelFormat.nv21: 2,
@@ -53,13 +72,22 @@ _OUT_CODES = {PixelFormat.y420p: 0, PixelFormat.nv12: 1, PixelFormat.nv21: 2,
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source/flags digest) and load the kernel library."""
+    """Compile (once per source/flags digest) and load the kernel library;
+    raises if its parameter layout is not this module's."""
     lib = nvcc.load(SOURCE)
     fn = lib.sv_frame_composite
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for info in (lib.sv_frame_params_size, lib.sv_frame_capacity):
+            info.argtypes = []
+            info.restype = ctypes.c_int
+        layout = (lib.sv_frame_params_size(), lib.sv_frame_capacity())
+        if layout != (_PARAMS.itemsize, CAPACITY):
+            fn.argtypes = None
+            raise RuntimeError(f"frame_composite.cu packs {layout} (bytes, "
+                               f"sources), ops/frame.py "
+                               f"{(_PARAMS.itemsize, CAPACITY)}")
     return lib
 
 
@@ -104,48 +132,93 @@ def _check(sources, target, device) -> torch.device:
     return seen.pop()
 
 
-def border_box(p: np.ndarray, gh: int, gw: int) -> Tuple[int, int, int, int]:
-    """Half-open pixel box (y0, y1, x0, x1) of a gh x gw grid that holds
-    every pixel whose border coordinates can fall inside [0, 1]^2, padded
-    by 2 px against float32 rounding.  The kernel still tests each pixel
-    exactly; the box only lets it skip a source."""
-    a, b, c, d, tx, ty = np.asarray(p[12:18], np.float64)
+@lru_cache(maxsize=1024)
+def _boxes(border: bytes, w: int, h: int) -> Tuple[Tuple[int, ...], ...]:
+    """The luma- and chroma-grid boxes of one border map (the packed
+    uniforms' bytes 12:18 as float32) on a w x h target."""
+    a, b, c, d, tx, ty = np.frombuffer(border, np.float32).tolist()
     det = a * d - b * c
-    if not np.isfinite(det) or abs(det) < 1e-30:
-        return (0, gh, 0, gw)
+    grids = ((h, w), (h // 2, w // 2))
+    if not math.isfinite(det) or abs(det) < 1e-30:
+        return tuple((0, gh, 0, gw) for gh, gw in grids)
     # ndc = M^-1 (border - t) at the border square's corners
-    xs, ys = [], []
+    nxs, nys = [], []
     for bx, by in ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0), (1.0, 1.0)):
-        nx = (d * (bx - tx) - b * (by - ty)) / det
-        ny = (-c * (bx - tx) + a * (by - ty)) / det
-        xs.append((nx + 1.0) / 2.0 * gw)
-        ys.append((ny + 1.0) / 2.0 * gh)
+        nxs.append((d * (bx - tx) - b * (by - ty)) / det)
+        nys.append((-c * (bx - tx) + a * (by - ty)) / det)
+    if not all(map(math.isfinite, nxs + nys)):
+        return tuple((0, gh, 0, gw) for gh, gw in grids)
 
     def span(lo, hi, n):
-        lo = max(0.0, min(float(n), np.floor(lo) - 2.0))
-        hi = max(0.0, min(float(n), np.ceil(hi) + 3.0))
-        return int(lo), int(hi)
+        return (int(max(0.0, min(float(n), math.floor(lo) - 2.0))),
+                int(max(0.0, min(float(n), math.ceil(hi) + 3.0))))
 
-    y0, y1 = span(min(ys), max(ys), gh)
-    x0, x1 = span(min(xs), max(xs), gw)
-    return (y0, y1, x0, x1)
+    boxes = []
+    for gh, gw in grids:
+        xs = [(v + 1.0) / 2.0 * gw for v in nxs]
+        ys = [(v + 1.0) / 2.0 * gh for v in nys]
+        boxes.append(span(min(ys), max(ys), gh) + span(min(xs), max(xs), gw))
+    return tuple(boxes)
+
+
+def border_boxes(u: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """[n, 2, 4] half-open pixel boxes (y0, y1, x0, x1) on the luma and the
+    chroma grid of a ``size`` = (w, h) target, one pair per packed uniform
+    row of ``u`` ([n, 29]).  A box holds every pixel whose border
+    coordinates can fall inside [0, 1]^2, padded by 2 px against float32
+    rounding.  The kernel still tests each pixel exactly; a box only lets a
+    tile skip a source.  Boxes are cached per border map: a live scene
+    keeps its layout from frame to frame."""
+    u = np.asarray(u, np.float32).reshape(-1, 29)
+    w, h = int(size[0]), int(size[1])
+    return np.array([_boxes(row[12:18].tobytes(), w, h) for row in u],
+                    np.int32).reshape(-1, 2, 4)
 
 
 def descriptors(size: Tuple[int, int], sources) -> np.ndarray:
     """The kernel's per-source table (one _DESC row per source)."""
-    w, h = int(size[0]), int(size[1])
-    table = np.zeros(max(len(sources), 1), _DESC)
-    for i, (planes, fmt, uni) in enumerate(sources):
-        p = packed(uni)
-        table["plane"][i, :len(planes)] = [t.data_ptr() for t in planes]
-        table["fmt"][i] = _SRC_CODES[fmt]
+    table = np.zeros(len(sources), _DESC)
+    if not sources:
+        return table
+    ptrs, codes, dims, us = [], [], [], []
+    for planes, fmt, uni in sources:
+        ptrs.append([t.data_ptr() for t in planes] + [0] * (3 - len(planes)))
+        codes.append(_SRC_CODES[fmt])
         chroma = planes[1] if len(planes) > 1 else planes[0]
-        table["dims"][i] = (planes[0].shape[0], planes[0].shape[1],
-                            chroma.shape[0], chroma.shape[1])
-        table["box"][i, 0] = border_box(p, h, w)
-        table["box"][i, 1] = border_box(p, h // 2, w // 2)
-        table["u"][i] = p
+        dims.append(tuple(planes[0].shape[:2]) + tuple(chroma.shape[:2]))
+        us.append(packed(uni))
+    u = np.stack(us)
+    table["plane"] = ptrs
+    table["fmt"] = codes
+    table["dims"] = dims
+    table["box"] = border_boxes(u, size)
+    table["u"] = u
     return table
+
+
+def launch_plan(n: int) -> List[Tuple[int, int]]:
+    """The launches of an n-source stack: [start, stop) slices of at most
+    CAPACITY sources, one launch (a clear, or a copy of the target) when
+    there are none.  Every launch after the first runs chained."""
+    return [(a, min(a + CAPACITY, n)) for a in range(0, max(n, 1), CAPACITY)]
+
+
+def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
+                rows: np.ndarray, chained: bool) -> np.ndarray:
+    """One launch's FrameParams: the target's planes and shape, and
+    ``rows`` (at most CAPACITY _DESC rows) as its sources."""
+    if len(rows) > CAPACITY:
+        raise ValueError(f"{len(rows)} sources in one launch, at most "
+                         f"{CAPACITY}")
+    params = np.zeros((), _PARAMS)
+    head = params["head"]
+    head["out"][:len(outs)] = [t.data_ptr() for t in outs]
+    head["n"] = len(rows)
+    head["w"], head["h"] = int(size[0]), int(size[1])
+    head["out_fmt"] = _OUT_CODES[out_fmt]
+    head["chained"] = int(chained)
+    params["src"][:len(rows)] = rows
+    return params
 
 
 def composite_frame_cuda(size: Tuple[int, int], sources,
@@ -177,15 +250,14 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
         outs = [torch.empty(s, dtype=torch.uint8, device=dev) for s in shapes]
     lib = build()
     table = descriptors(size, sources)
-    with torch.cuda.device(dev):
-        descs = torch.from_numpy(table.view(np.uint8)).pin_memory().to(
-            dev, non_blocking=True)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
-        err = lib.sv_frame_composite(descs.data_ptr(), len(sources), *ptrs,
-                                     h, w, _OUT_CODES[out_fmt],
-                                     int(target is not None), stream)
-    if err != 0:
-        raise RuntimeError(f"frame_composite launch failed: CUDA error {err}")
-    launches += 1
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for a, b in launch_plan(len(sources)):
+        params = pack_params(size, out_fmt, outs, table[a:b],
+                             a > 0 or target is not None)
+        err = lib.sv_frame_composite(params.ctypes.data, index, stream)
+        if err != 0:
+            raise RuntimeError(f"frame_composite launch failed: CUDA error "
+                               f"{err}")
+        launches += 1
     return outs

@@ -27,12 +27,6 @@ from ..utils import matrix as m4
 UNIFORM_WIDTH = 6 * 3 + 4 + 1 + 4 + 2
 
 
-def _affine2(m: np.ndarray) -> np.ndarray:
-    """Extract the 2D affine part [a, b, c, d, tx, ty] of a 4x4 (x,y rows)."""
-    return np.array([m[0, 0], m[0, 1], m[1, 0], m[1, 1], m[0, 3], m[1, 3]],
-                    dtype=np.float32)
-
-
 def _affine2_to_mat4(v: np.ndarray) -> np.ndarray:
     m = np.eye(4, dtype=np.float32)
     m[0, 0], m[0, 1], m[1, 0], m[1, 1], m[0, 3], m[1, 3] = v
@@ -69,17 +63,15 @@ class ImageUniforms:
         )
 
     def pack(self) -> np.ndarray:
-        out = np.zeros(UNIFORM_WIDTH, dtype=np.float32)
-        out[0:6] = _affine2(self.transform_inv)
-        out[6:12] = _affine2(self.texture_inv)
-        out[12:18] = _affine2(self.border_inv)
-        out[18:22] = self.fill_color
-        out[22] = self.opacity
-        out[23:25] = self.input_size
-        out[25:27] = self.output_size
-        out[27] = self.image_time
-        out[28] = self.target_time
-        return out
+        # one array construction: this runs for every source of every frame
+        t, x, b = self.transform_inv, self.texture_inv, self.border_inv
+        f = self.fill_color
+        return np.array((t[0, 0], t[0, 1], t[1, 0], t[1, 1], t[0, 3], t[1, 3],
+                         x[0, 0], x[0, 1], x[1, 0], x[1, 1], x[0, 3], x[1, 3],
+                         b[0, 0], b[0, 1], b[1, 0], b[1, 1], b[0, 3], b[1, 3],
+                         f[0], f[1], f[2], f[3], self.opacity,
+                         *self.input_size, *self.output_size,
+                         self.image_time, self.target_time), dtype=np.float32)
 
     @staticmethod
     def unpack(v: np.ndarray) -> "ImageUniforms":

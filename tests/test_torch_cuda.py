@@ -3,9 +3,12 @@ BGRA targets) and the motion search (SAD and SSD) against their plain torch
 versions on the same CUDA tensors, and the audio folds against the host
 loop.  Marked ``cuda``; they skip where there is no card.  Run them on the
 card with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
-Tolerance: 1 LSB for pixels (the kernel is built to be bit-exact, and this
-checks that too), exact for motion vectors and audio.  Imports only the
-port."""
+Tolerance: 0 LSB for pixels (the frame kernels are bit-exact against the
+plain version), exact for motion vectors and audio.  The frame cases cover
+both of the kernels' map paths (the row side once per run for axis-aligned
+sources, every map per pixel for rotated ones), downscales and upscales,
+ragged runs, stacks longer than one launch and chained targets.  Imports
+only the port."""
 
 import numpy as np
 import pytest
@@ -17,7 +20,9 @@ from swiftvideo_tpu_torch.ops.uniforms import rect_uniforms
 
 pytestmark = pytest.mark.cuda
 
-TOL = 1
+TOL = 0
+CAP = frame.CAPACITY
+FMTS = [PF.y420p, PF.nv12, PF.nv21, PF.RGBA, PF.BGRA]
 
 
 @pytest.fixture
@@ -68,31 +73,97 @@ def _scene(rng, device, w, h):
     return srcs
 
 
-@pytest.mark.parametrize("size", [(320, 180), (1920, 1080)])
-@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.nv12, PF.nv21, PF.RGBA,
-                                     PF.BGRA], ids=lambda f: f.value)
-def test_kernel_matches_plain_on_card(card, size, out_fmt):
-    srcs = _scene(np.random.default_rng(1), card, *size)
+def _assert_matches_plain(card, size, srcs, out_fmt, launches_per_call=1,
+                          target=None):
     launches = frame.launches
-    got = frame.composite_frame_cuda(size, srcs, out_fmt)
-    assert frame.launches == launches + 1
-    ref = composite.composite_stack_torch(out_fmt, size, srcs, card)
+    got = frame.composite_frame_cuda(size, srcs, out_fmt, target=target)
+    assert frame.launches == launches + launches_per_call
+    ref = composite.composite_stack_torch(out_fmt, size, srcs, card,
+                                          target=target)
     torch.cuda.synchronize()
+    assert len(got) == len(ref)
     for g, r in zip(got, ref):
         assert g.is_cuda and g.shape == r.shape
         assert int((g.int() - r.int()).abs().max()) <= TOL
 
 
-@pytest.mark.parametrize("out_fmt", [PF.nv21, PF.BGRA], ids=lambda f: f.value)
+# 642x362 and 1918x1078: widths that are not a multiple of a thread's run
+# of 4 pixels, and rows that are not word-aligned
+@pytest.mark.parametrize("size", [(320, 180), (642, 362), (1918, 1078),
+                                  (1920, 1080)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("out_fmt", FMTS, ids=lambda f: f.value)
+def test_kernel_matches_plain_on_card(card, size, out_fmt):
+    _assert_matches_plain(card, size, _scene(np.random.default_rng(1), card,
+                                             *size), out_fmt)
+
+
+@pytest.mark.parametrize("out_fmt", [PF.nv21, PF.BGRA, PF.y420p, PF.RGBA],
+                         ids=lambda f: f.value)
 def test_kernel_chained_target_on_card(card, out_fmt):
     size = (320, 180)
     srcs = _scene(np.random.default_rng(2), card, *size)
     base = composite.composite_stack_torch(out_fmt, size, srcs[:3], card)
-    got = frame.composite_frame_cuda(size, srcs[3:], out_fmt, target=base)
-    ref = composite.composite_stack_torch(out_fmt, size, srcs[3:], card,
-                                          target=base)
-    for g, r in zip(got, ref):
-        assert int((g.int() - r.int()).abs().max()) <= TOL
+    _assert_matches_plain(card, size, srcs[3:], out_fmt, target=base)
+
+
+@pytest.mark.parametrize("out_fmt", FMTS, ids=lambda f: f.value)
+def test_kernel_stack_longer_than_capacity_on_card(card, out_fmt):
+    """CAPACITY + 3 mixed sources run as two launches, the second chained."""
+    rng = np.random.default_rng(5)
+    srcs = []
+    for s in range(CAP + 3):
+        fmt = (PF.y420p, PF.nv12, PF.BGRA, PF.RGBA)[s % 4]
+        extra = {}
+        if s % 4 == 2:
+            extra = dict(rotation=0.3 + 0.05 * s)
+        if s % 4 == 3:
+            extra = dict(fill_color=(0.2, 0.5, 0.7, 0.6),
+                         border=(s * 9.0 - 3, s * 5.0 - 2, 106, 70))
+        srcs.append((_planes(rng, fmt, 128, 72, card), fmt, rect_uniforms(
+            (128, 72), (320, 180), x=s * 9.0, y=s * 5.0, w=100, h=64.5,
+            opacity=0.55 + 0.01 * s, **extra)))
+    _assert_matches_plain(card, (320, 180), srcs, out_fmt,
+                          launches_per_call=2)
+
+
+@pytest.mark.parametrize("out_fmt", FMTS, ids=lambda f: f.value)
+def test_kernel_4to1_downscale_on_card(card, out_fmt):
+    """A 3840x2160 camera into a 960x540 box: a tile's taps spread over
+    a footprint of 16 texels per output pixel."""
+    src = _planes(np.random.default_rng(6), PF.y420p, 3840, 2160, card)
+    srcs = [(src, PF.y420p, rect_uniforms((3840, 2160), (1920, 1080), x=480,
+                                          y=270, w=960, h=540))]
+    _assert_matches_plain(card, (1920, 1080), srcs, out_fmt)
+
+
+@pytest.mark.parametrize("out_fmt", FMTS, ids=lambda f: f.value)
+def test_kernel_upscale_on_card(card, out_fmt):
+    """A 960x540 camera upscaled 2x to the whole 1920x1080 canvas and a
+    1:1 RGBA logo over it: a tile's pixels re-read the same texels."""
+    rng = np.random.default_rng(8)
+    logo = _planes(rng, PF.RGBA, 320, 96, card)
+    srcs = [(_planes(rng, PF.y420p, 960, 540, card), PF.y420p,
+             rect_uniforms((960, 540), (1920, 1080), x=0, y=0, w=1920,
+                           h=1080)),
+            (logo, PF.RGBA, rect_uniforms((320, 96), (1920, 1080), x=64.25,
+                                          y=40.5, w=320, h=96, opacity=0.8))]
+    _assert_matches_plain(card, (1920, 1080), srcs, out_fmt)
+
+
+@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.RGBA], ids=lambda f: f.value)
+def test_kernel_rotated_source_with_axis_aligned_ones_on_card(card, out_fmt):
+    """Axis-aligned cameras upscaled 1.5x and a rotated overlay in one
+    launch, the overlay crossing tiles that fold the cameras."""
+    rng = np.random.default_rng(7)
+    w, h = 640, 360
+    srcs = [(_planes(rng, PF.y420p, w // 3, h // 3, card), PF.y420p,
+             rect_uniforms((w // 3, h // 3), (w, h), x=(s % 2) * w / 2,
+                           y=(s // 2) * h / 2, w=w / 2, h=h / 2, opacity=0.9))
+            for s in range(4)]
+    srcs.insert(2, (_planes(rng, PF.RGBA, 200, 120, card), PF.RGBA,
+                    rect_uniforms((200, 120), (w, h), x=220, y=120, w=200,
+                                  h=120, rotation=0.6, opacity=0.8)))
+    _assert_matches_plain(card, (w, h), srcs, out_fmt)
 
 
 def test_rgba_kernel_config1_on_card(card):
