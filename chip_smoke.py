@@ -15,15 +15,21 @@ started together) and drives the port's paths at full size:
   on the same scene, the Composer's VideoMixer with an RGBA output for 30
   ticks, and ``apply_compute_image`` with ``img_y420p_rgba`` (a 1280x720
   y420p picture into a 640x360 RGBA canvas);
-* the motion search, SAD (K4) and SSD (K5), through ``run_compute_kernel``
-  at 1080p with 16x16 blocks and a 64-pixel window, against the plain
-  version, on a reference shifted by a known vector, and both at 4K.
+* the motion search, SAD (K4, ``motion_sad_kernel``) and SSD (K5,
+  ``motion_ssd_kernel``), through ``run_compute_kernel`` at 1080p and 4K
+  with 16x16 blocks and a 64-pixel window, against the plain version, on a
+  tie-heavy 1080p frame (periodic every 8 pixels, shifted by half a
+  period, so that vectors of equal cost tie exactly) and on a reference
+  shifted by a known vector.  Phase 2 prints each motion kernel's
+  registers and shared memory (ptxas) and what its SASS holds
+  (``cuobjdump -sass``): the SSD kernel must hold an integer tensor-core
+  instruction, and the SAD kernel's byte-SIMD opcode sets its bound.
 
 Every pixel comparison is exact: the frame kernels are bit-exact against
 the plain version, so one differing pixel fails the run.  Then it times
-every kernel and its plain version with CUDA events; for the frame kernels
-it also takes the device time per launch from ``torch.profiler``'s kernel
-events and the host time per call.  Each phase prints one line; any
+every kernel and its plain version with CUDA events, takes every kernel's
+device time per launch from ``torch.profiler``'s kernel events, and the
+frame kernels' host time per call.  Each phase prints one line; any
 failure exits non-zero.  The line before the last holds every kernel's
 numbers as JSON; the last line is the run's JSON summary.  Needs a CUDA
 device; imports nothing of JAX.
@@ -32,9 +38,12 @@ device; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -44,8 +53,13 @@ OV_H = 216
 LSB = 0  # tolerance of every pixel comparison, in u8 steps
 BLOCK, SEARCH = 16, 64
 # published peaks of one H100 SXM (dense): HBM bytes/s, float32 outside the
-# tensor cores (taken for the integer SAD terms too), bf16 tensor cores
-HBM_BPS, NONTENSOR_OPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# tensor cores, bf16 and int8 tensor cores
+HBM_BPS, NONTENSOR_OPS, BF16_FLOPS, INT8_OPS = 3.35e12, 67e12, 989e12, 1979e12
+# the H100 SXM's SMs, and the integer lanes of one SM per clock (4 sub-
+# partitions of 16 INT32 lanes), the pipe of the byte-SIMD SAD instructions
+SMS, INT_LANES_PER_SM_CLOCK = 132, 64
+TENSOR_OPCODES = ("IMMA", "HMMA", "HGMMA", "IGMMA")
+BYTE_SAD_OPCODES = ("VABSDIFF4",)  # |a - b| over 4 bytes, summed into an accumulator
 REPLACES = {"K1": "swiftvideo_tpu/ops/pallas_frame.py:127",
             "K2": "swiftvideo_tpu/ops/pallas_frame.py:1100",
             "K3": "swiftvideo_tpu/ops/pallas_frame.py:1524",
@@ -95,6 +109,28 @@ def live_stack(rng, dev):
                 rect_uniforms((W, OV_H), (W, H), x=0, y=H - OV_H - 40, w=W,
                               h=OV_H))]
     return cam_srcs, ov_srcs
+
+
+def motion_frames(h, w, seed, dev):
+    """(cur, ref) luma on ``dev``: random ref, cur = ref + noise in
+    [-12, 12)."""
+    r = np.random.default_rng(seed)
+    ref = r.integers(0, 255, (h, w), np.int64).astype(np.uint8)
+    cur = np.clip(ref.astype(int) + r.integers(-12, 12, ref.shape), 0,
+                  255).astype(np.uint8)
+    return (torch.from_numpy(cur).to(dev), torch.from_numpy(ref).to(dev))
+
+
+def tie_frames(h, w, period, seed, dev):
+    """A frame periodic every ``period`` pixels both ways, and the same
+    frame shifted by half a period: the vectors (+-p/2, +-p/2) tie exactly,
+    score and cost, and the scan order decides."""
+    r = np.random.default_rng(seed)
+    tile = r.integers(0, 256, (period, period), np.int64).astype(np.uint8)
+    ref = np.tile(tile, (h // period + 1, w // period + 1))[:h, :w]
+    cur = np.roll(ref, (period // 2, period // 2), axis=(0, 1))
+    return (torch.from_numpy(np.ascontiguousarray(cur)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(ref)).to(dev))
 
 
 def timed_ms(fn, reps=20, batch=10, warmup=3):
@@ -168,6 +204,65 @@ def bound(nbytes, ops, peak):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def kernel_sass(library) -> dict:
+    """{mangled kernel name: Counter of SASS opcodes} of a built library,
+    from ``cuobjdump -sass`` (predicates and modifiers dropped)."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([exe, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out[name] = Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
+        if m and name:
+            out[name][m.group(1)] += 1
+    return out
+
+
+def ptxas_lines(log: str) -> dict:
+    """{mangled kernel name: ptxas's stack-frame and "Used ..." lines}
+    from nvcc's -v log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        elif name and ("stack frame" in ln or ("Used" in ln and "registers" in ln)):
+            out[name] = (out.get(name, "") + " "
+                         + ln.split(":", 1)[-1].strip()).strip()
+    return out
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reads it."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def motion_bound(h, w, metric, motion, sad_terms_per_op, clock_hz):
+    """(bound ms, by) of one full search: the frames read and the map
+    written at the HBM rate, against the pixel-candidate terms.  SSD: the
+    cross term's multiply-add, 2 operations a term at the int8 tensor rate
+    (the least time of an exact u8 product).  SAD: one byte-SIMD lane-
+    instruction per ``sad_terms_per_op`` terms at the integer pipe's lanes
+    per SM per clock, on every SM at ``clock_hz``; without such an
+    instruction, 2 operations a term at the non-tensor rate."""
+    terms = pixel_candidates(h, w, motion)
+    nbytes = 2 * h * w + (h // BLOCK) * (w // BLOCK) * 4
+    if metric == "ssd":
+        return bound(nbytes, 2 * terms, INT8_OPS)
+    if sad_terms_per_op:
+        rate = sad_terms_per_op * INT_LANES_PER_SM_CLOCK * SMS * clock_hz
+        return bound(nbytes, terms, rate)
+    return bound(nbytes, 2 * terms, NONTENSOR_OPS)
+
+
 def pixel_candidates(h, w, motion):
     """Pixel-candidate terms of a full search: block pixels times the
     candidates of every block's clamped window, for this geometry."""
@@ -215,12 +310,38 @@ def main() -> None:
     nvcc.build_all([frame.SOURCE, motion.SOURCE])
     frame.build()
     motion.build()
+    # the frame kernels' registers here, the motion kernels' below
     regs = [f"{name}: {ln.split(':', 1)[1].strip()}"
             for name, log in sorted(nvcc.build_logs.items())
+            if name != motion.SOURCE.stem
             for ln in log.splitlines() if "registers" in ln]
     print(f"[2 build] frame_composite.cu and motion_search.cu built and loaded "
           f"in {time.perf_counter() - t0:.2f} s; {'; '.join(regs) or 'cached'}",
           flush=True)
+    sass = kernel_sass(nvcc.library_path(motion.SOURCE))
+    ptxas = ptxas_lines(nvcc.build_logs.get(motion.SOURCE.stem, ""))
+    parts, sad_terms_per_op = [], 0
+    for metric, kname in motion.KERNELS.items():
+        # the instantiation the wrapper launches: kname<GROUP[metric]>
+        inst = f"{kname}ILi{motion.GROUP[metric]}E"
+        found = [k for k in sass if inst in k]
+        if len(found) != 1:
+            fail(f"cuobjdump shows {len(found)} functions named {inst}")
+        ops = sass[found[0]]
+        tensor = {o: ops[o] for o in TENSOR_OPCODES if ops[o]}
+        byte_sad = {o: ops[o] for o in BYTE_SAD_OPCODES if ops[o]}
+        if metric == "ssd" and not tensor:
+            fail(f"{kname}'s SASS holds no tensor-core instruction")
+        if metric == "sad" and byte_sad:
+            sad_terms_per_op = 4  # one lane-instruction: 4 bytes' |c - r|, accumulated
+        parts.append(f"{kname}<{motion.GROUP[metric]}>: "
+                     f"{ptxas.get(found[0], 'ptxas line not in the log')}; "
+                     f"SASS {sum(ops.values())} instructions, tensor-core "
+                     f"{tensor or 'none'}, byte-SIMD SAD {byte_sad or 'none'}, "
+                     f"LDS {ops['LDS']}, top {ops.most_common(6)}")
+    clock_hz = sm_clock_hz()
+    print("[2 motion kernels] " + " | ".join(parts) + f" | max SM clock "
+          f"{clock_hz / 1e6:.0f} MHz", flush=True)
 
     # phase 3: yuv-target kernel vs plain on the card, live-station stack
     rng = np.random.default_rng(0)
@@ -496,23 +617,19 @@ def main() -> None:
         return s.with_(img=s.img.with_buffers(
             [plane] + list(s.planes()[1:]), BufferType.gpu))
 
-    def motion_frames(h, w, seed):
-        r = np.random.default_rng(seed)
-        ref = r.integers(0, 255, (h, w), np.int64).astype(np.uint8)
-        cur = np.clip(ref.astype(int) + r.integers(-12, 12, ref.shape), 0,
-                      255).astype(np.uint8)
-        return (torch.from_numpy(cur).to(dev), torch.from_numpy(ref).to(dev))
-
     me_names = {"sad": "me_fullsearch", "ssd": "me_fullsearch_ssd"}
-    me_frames = {"1080p": motion_frames(H, W, 1),
-                 "4K": motion_frames(2160, 3840, 2)}
+    me_frames = {"1080p": motion_frames(H, W, 1, dev),
+                 "4K": motion_frames(2160, 3840, 2, dev),
+                 "1080p ties": tie_frames(H, W, 8, 3, dev)}
     me_cases = [("K4", "sad", "1080p"), ("K5", "ssd", "1080p"),
                 ("K4", "sad", "4K"), ("K5", "ssd", "4K")]
     me_launches, parts = {}, []
-    for key, metric, res in me_cases:
+    for key, metric, res in me_cases + [("K4", "sad", "1080p ties"),
+                                        ("K5", "ssd", "1080p ties")]:
         cur, ref = me_frames[res]
         kernel = registry.default_compute_kernel_from_string(me_names[metric])
         frame.launches = motion.launches = composite.calls = 0
+        motion.route_launches.update(dict.fromkeys(motion.route_launches, 0))
         got = registry.run_compute_kernel(
             ctx, [luma_sample(cur), luma_sample(ref)],
             create_picture_sample((cur.shape[1] // BLOCK, cur.shape[0] // BLOCK),
@@ -520,8 +637,11 @@ def main() -> None:
                                   workspace_id="w"), kernel)
         torch.cuda.synchronize()
         me_launches[(key, res)] = motion.launches
-        if motion.launches != 1 or frame.launches or composite.calls:
-            fail(f"{key} {res}: motion launches {motion.launches}")
+        routes = {k: n for k, n in motion.route_launches.items() if n}
+        if (motion.launches != 1 or frame.launches or composite.calls
+                or routes != {motion.KERNELS[metric]: 1}):
+            fail(f"{key} {res}: motion launches {motion.launches}, by kernel "
+                 f"{routes}")
         mv = got.planes()[0]
         want = motion.me_fullsearch_torch(cur, ref, BLOCK, SEARCH, metric)
         if not (mv.is_cuda and got.pixel_format() == PixelFormat.RGBA
@@ -529,7 +649,7 @@ def main() -> None:
             fail(f"{key} {res}: the kernel's MV map differs from the plain "
                  f"version's ({int((mv != want).any(-1).sum())} blocks)")
         parts.append(f"{key} {metric} {res} {tuple(mv.shape)} equal, "
-                     f"launches {motion.launches}")
+                     f"launches {routes}")
     # a reference shifted by a known vector comes back as that vector
     dx, dy = -7, 5
     base_ref = me_frames["1080p"][1]
@@ -561,20 +681,31 @@ def main() -> None:
     host["K3"] = host_us(k3_call)
     plain["K3"] = timed_ms(lambda: composite.composite_stack_torch(
         PixelFormat.RGBA, (W, H), full, dev), batch=2)
+    me_bounds = {}
     for key, metric, res in me_cases:
         cur, ref = me_frames[res]
-        times[(key, res)] = timed_ms(lambda: motion.me_fullsearch(
-            cur, ref, BLOCK, SEARCH, metric), reps=10, batch=5, warmup=2)
+
+        def me_call(cur=cur, ref=ref, metric=metric):
+            return motion.me_fullsearch(cur, ref, BLOCK, SEARCH, metric)
+
+        times[(key, res)] = timed_ms(me_call, reps=10, batch=5, warmup=2)
+        dev_ms[(key, res)] = device_ms(me_call, motion.KERNELS[metric])
         plain[(key, res)] = timed_ms(lambda: motion.me_fullsearch_torch(
             cur, ref, BLOCK, SEARCH, metric), reps=3, batch=1, warmup=1)
+        me_bounds[(key, res)] = motion_bound(*cur.shape, metric, motion,
+                                             sad_terms_per_op, clock_hz)
+        if me_bounds[(key, res)][0] > dev_ms[(key, res)]:
+            fail(f"{key} {res}: device time {dev_ms[(key, res)]:.4f} ms is "
+                 f"below its bound {me_bounds[(key, res)][0]:.4f} ms")
     k3_bound = bound(frame_bytes((W, H), full, PixelFormat.RGBA), 0, 1.0)[0]
     print(f"[11 timings, ms] K3: call {times['K3']:.4f} device "
           f"{dev_ms['K3']:.4f} host {host['K3']:.1f} us plain "
           f"{plain['K3']:.4f} bound {k3_bound:.4f} share "
           f"{k3_bound / dev_ms['K3']:.1%}; " + "; ".join(
-              f"{' '.join(k)}: kernel {times[k]:.4f} plain {plain[k]:.4f}"
-              for k in times if not isinstance(k, str)) + f" | {smi}",
-          flush=True)
+              f"{' '.join(k)}: call {times[k]:.4f} device {dev_ms[k]:.4f} "
+              f"plain {plain[k]:.4f} bound {me_bounds[k][0]:.6f} "
+              f"({me_bounds[k][1]}) share {me_bounds[k][0] / dev_ms[k]:.1%}"
+              for k in me_bounds) + f" | {smi}", flush=True)
 
     frame_rows = [
         ("K1", "frame_composite (K1: planar-yuv cameras)", cam_srcs,
@@ -593,20 +724,16 @@ def main() -> None:
                         "device_ms": dev_ms[key], "plain_ms": plain[key],
                         "bound_ms": bms, "bound_by": by, "library_ms": None})
     for key, metric, res in me_cases:
-        cur, ref = me_frames[res]
-        h, w = cur.shape
-        terms = pixel_candidates(h, w, motion)
-        # SAD: |c - r| and its sum per term on the non-tensor units; SSD: the
-        # cross term's multiply-add (2 FLOP) on the bf16 tensor cores
-        bms, by = bound(2 * h * w + (h // BLOCK) * (w // BLOCK) * 4, 2 * terms,
-                        NONTENSOR_OPS if metric == "sad" else BF16_FLOPS)
-        kernels.append({"name": f"motion_search ({key}: {metric.upper()}, {res}"
-                                f" {BLOCK}/{SEARCH})",
+        bms, by = me_bounds[(key, res)]
+        kernels.append({"name": f"{motion.KERNELS[metric]} ({key}: "
+                                f"{metric.upper()}, {res} {BLOCK}/{SEARCH})",
                         "route": "cuda",
                         "source": "swiftvideo_tpu_torch/csrc/motion_search.cu",
                         "replaces": REPLACES[key],
                         "launches": me_launches[(key, res)], "max_abs_err": 0,
-                        "ms": times[(key, res)], "plain_ms": plain[(key, res)],
+                        "ms": times[(key, res)],
+                        "device_ms": dev_ms[(key, res)],
+                        "plain_ms": plain[(key, res)],
                         "bound_ms": bms, "bound_by": by, "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -184,20 +184,59 @@ def _frames(rng, h, w, device):
     return (torch.from_numpy(cur).to(device), torch.from_numpy(ref).to(device))
 
 
-@pytest.mark.parametrize("metric", motion.METRICS)
-@pytest.mark.parametrize("geom", [(96, 128, 64), (120, 128, 32), (48, 80, 64),
-                                  (64, 64, 16), (1080, 1920, 64)],
-                         ids=lambda g: "x".join(map(str, g)))
-def test_motion_kernel_matches_plain_on_card(card, geom, metric):
-    h, w, search = geom
-    cur, ref = _frames(np.random.default_rng(h + w + search), h, w, card)
+def _tie_frames(kind, h, w, device):
+    """Inputs where many candidates tie: a flat frame; a frame periodic
+    every 4 or 8 pixels both ways against itself shifted by half a period
+    (the vectors (+-p/2, +-p/2) tie exactly in score and cost, so the scan
+    order decides); an all-255 frame (the largest exact sums)."""
+    rng = np.random.default_rng(len(kind) + h + w)
+    if kind == "flat":
+        ref = np.full((h, w), 77, np.uint8)
+        cur = ref
+    elif kind.startswith("period"):
+        p = int(kind[len("period"):])
+        tile = rng.integers(0, 256, (p, p), np.int64).astype(np.uint8)
+        ref = np.tile(tile, (h // p + 1, w // p + 1))[:h, :w]
+        cur = np.roll(ref, (p // 2, p // 2), axis=(0, 1))
+    else:
+        ref = np.full((h, w), 255, np.uint8)
+        cur = ref
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (cur, ref))
+
+
+def _kernel_equals_plain(cur, ref, search, metric):
+    h, w = cur.shape
     launches = motion.launches
+    routed = motion.route_launches[motion.KERNELS[metric]]
     got = motion.me_fullsearch(cur, ref, 16, search, metric)
     assert motion.launches == launches + 1
+    assert motion.route_launches[motion.KERNELS[metric]] == routed + 1
     want = motion.me_fullsearch_torch(cur, ref, 16, search, metric)
     torch.cuda.synchronize()
     assert got.is_cuda and got.shape == (h // 16, w // 16, 4)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", motion.METRICS)
+@pytest.mark.parametrize("geom", [(96, 128, 64), (120, 128, 32), (48, 80, 64),
+                                  (64, 64, 16), (1080, 1920, 64),
+                                  (2160, 3840, 64), (1080, 1918, 64),
+                                  (360, 640, 128), (130, 70, 100)],
+                         ids=lambda g: "x".join(map(str, g)))
+def test_motion_kernel_matches_plain_on_card(card, geom, metric):
+    """Clamped windows at every edge; 4K; a width that is not a multiple
+    of 16 (rows not 4-byte aligned); searches of several staged chunks."""
+    h, w, search = geom
+    cur, ref = _frames(np.random.default_rng(h + w + search), h, w, card)
+    _kernel_equals_plain(cur, ref, search, metric)
+
+
+@pytest.mark.parametrize("metric", motion.METRICS)
+@pytest.mark.parametrize("kind", ["flat", "period4", "period8", "all255"])
+def test_motion_kernel_ties_match_plain_on_card(card, kind, metric):
+    cur, ref = _tie_frames(kind, 272, 480, card)
+    _kernel_equals_plain(cur, ref, 64, metric)
 
 
 @pytest.mark.parametrize("metric", motion.METRICS)
