@@ -7,8 +7,11 @@ sample anchors ``pts = rescale(sample.pts, outFrequency)``; every emitted
 sample carries the accumulated pts and advances it by its own sample count
 (:103) — the exact-bookkeeping contract of sampleRateConversionTests.
 
-The DSP is the polyphase matmul resampler (ops.resample) replacing soxr;
-this port runs its host (numpy) route only.
+The DSP is the polyphase matmul resampler (ops.resample) replacing soxr:
+its host (numpy) route, or with ``use_device=True`` its device route on
+``device`` (the current CUDA card unless the caller names one; the stage
+raises at construction without one).  The pts and sample-count
+bookkeeping is the same in both.
 """
 
 from __future__ import annotations
@@ -17,19 +20,20 @@ from typing import Optional
 
 from ..core import EventBox, TimePoint, Tx, rescale
 from ..media.audio import AudioSample
+from ..ops.registry import make_compute_context
 from ..ops.resample import (PolyphaseResampler, from_planar_f32, map_channels,
                             to_planar_f32)
 
 
 class AudioSampleRateConversion(Tx):
     def __init__(self, out_frequency: int, out_channels: int,
-                 out_format: str, use_device: bool = False):
-        if use_device:
-            raise NotImplementedError(
-                "device sample-rate conversion is not yet ported")
+                 out_format: str, use_device: bool = False, device=None):
         self.out_frequency = out_frequency
         self.out_channels = out_channels
         self.out_format = out_format
+        self.use_device = use_device
+        self.device = make_compute_context(device).device if use_device \
+            else None
         self._resampler: Optional[PolyphaseResampler] = None
         self._pts: Optional[TimePoint] = None
         self._last: Optional[AudioSample] = None
@@ -98,7 +102,8 @@ class AudioSampleRateConversion(Tx):
             if self._resampler is None:
                 self._resampler = PolyphaseResampler(
                     sample.sample_rate(), self.out_frequency,
-                    self.out_channels)
+                    self.out_channels, use_device=self.use_device,
+                    device=self.device)
             y = self._resampler.process(x)
         else:
             y = x

@@ -12,8 +12,9 @@ Reference semantics:
   saturation, so the fold is a loop over sources, not a sum).
 
 The host functions stay numpy (they are the oracle and the small-tick
-path); ``mix_s16_device`` / ``mix_s16_device_windowed`` run on whatever
-device their input tensors live on.
+path); ``mix_s16_device`` / ``mix_s16_device_batched`` /
+``mix_s16_device_windowed`` run on whatever device their input tensors
+live on.
 """
 
 from __future__ import annotations
@@ -82,15 +83,20 @@ def apply_mix_s16(input_buf: np.ndarray, gains: Sequence[float],
 
 # --- device path ----------------------------------------------------------
 
-def _fold_args(inputs: torch.Tensor, gains, base):
+def _fold_args(inputs: torch.Tensor, gains, base, ndim: int = 2):
+    """(gains on the inputs' device, the int32 accumulator: ``base`` or
+    zeros, shaped as ``inputs`` without its source axis).  ``inputs`` must
+    be an ``ndim``-dimensional int16 tensor: [S, n], or [B, S, n] when
+    ``ndim`` is 3."""
     if not isinstance(inputs, torch.Tensor) or inputs.dtype != torch.int16 \
-            or inputs.dim() != 2:
-        raise TypeError("inputs must be an [S, n] int16 tensor")
+            or inputs.dim() != ndim:
+        layout = "[B, S, n]" if ndim == 3 else "[S, n]"
+        raise TypeError(f"inputs must be an {layout} int16 tensor")
     device = inputs.device
     gains = torch.as_tensor(gains, dtype=torch.float32, device=device)
-    n = inputs.shape[1]
     if base is None:
-        acc = torch.zeros(n, dtype=torch.int32, device=device)
+        acc = torch.zeros(inputs.shape[:-2] + inputs.shape[-1:],
+                          dtype=torch.int32, device=device)
     else:
         acc = torch.as_tensor(base, device=device).to(torch.int32)
     return gains, acc
@@ -107,6 +113,23 @@ def mix_s16_device(inputs: torch.Tensor, gains, base=None) -> torch.Tensor:
     for s in range(inputs.shape[0]):
         contrib = torch.trunc(inputs[s].to(torch.float32)
                               * gains[s][ch]).to(torch.int32)
+        acc = torch.clamp(acc + contrib, -32768, 32767)
+    return acc.to(torch.int16)
+
+
+def mix_s16_device_batched(inputs: torch.Tensor, gains,
+                           base=None) -> torch.Tensor:
+    """``mix_s16_device`` over a leading stream axis: [B, S, n] int16
+    ``inputs`` with [B, S, C] gains over ``base`` ([B, n] int16, zeros when
+    None) -> [B, n] int16, on the device ``inputs`` lives on.  Every stream
+    folds its S sources in order with the same trunc and saturation; the
+    loop is over sources, the streams are one tensor axis."""
+    gains, acc = _fold_args(inputs, gains, base, ndim=3)
+    n = inputs.shape[2]
+    ch = torch.arange(n, device=inputs.device) % gains.shape[-1]
+    for s in range(inputs.shape[1]):
+        contrib = torch.trunc(inputs[:, s].to(torch.float32)
+                              * gains[:, s][:, ch]).to(torch.int32)
         acc = torch.clamp(acc + contrib, -32768, 32767)
     return acc.to(torch.int16)
 

@@ -57,6 +57,16 @@ def packed(uni) -> np.ndarray:
     return np.asarray(p, dtype=np.float32)
 
 
+def is_axis_aligned(p: np.ndarray, eps: float = 1e-7) -> bool:
+    """True when none of the three packed affines has a cross term (no
+    rotation or shear): every map is separable into a row and a column
+    side (golden.is_axis_aligned)."""
+    p = np.asarray(p)
+    return bool(abs(p[1]) < eps and abs(p[2]) < eps
+                and abs(p[7]) < eps and abs(p[8]) < eps
+                and abs(p[13]) < eps and abs(p[14]) < eps)
+
+
 @lru_cache(maxsize=8)
 def _u8_lut(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_U8_TO_F).to(device)

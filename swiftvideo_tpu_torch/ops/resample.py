@@ -8,10 +8,14 @@ evaluated as **one dense matmul per cycle block** —
     out[c*L + p] = dot(H[p, :], x[c*M + r0 : c*M + r0 + R])
 
 i.e. frame the input into overlapping [cycles, R] windows and contract with
-the [L, R] phase-filter matrix.  This port runs the numpy route only; the
-device route (``use_device=True``) is not yet ported.  Streaming state is
-an input FIFO with absolute sample accounting so emitted (pts, count)
-bookkeeping is exact (the contract asserted by the reference's sampleCountTest,
+the [L, R] phase-filter matrix.  The host route does it in numpy; the
+device route (``use_device=True``) copies the windowed span of the FIFO to
+the device, views it as [C, cycles, R] windows with ``Tensor.unfold`` (the
+window starts step by M) and runs one full-float32 ``torch.matmul``
+against H (ops/fp32.py raises when the TF32 switches are on).  Streaming
+state stays on the host either way: an input FIFO with absolute sample
+accounting so emitted (pts, count) bookkeeping is exact (the contract
+asserted by the reference's sampleCountTest,
 sampleRateConversionTests.swift:26-58).
 
 Quality: default 24 taps/phase Kaiser beta 12 gives > 90 dB stopband —
@@ -27,8 +31,11 @@ from math import gcd
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..media.audio import is_planar
+from .fp32 import check_fp32_matmul
+from .registry import make_compute_context
 
 
 @lru_cache(maxsize=32)
@@ -75,6 +82,15 @@ def _windows_matmul_np(x: np.ndarray, H: np.ndarray, starts: np.ndarray) -> np.n
     return (np.take(x, idx, axis=-1) @ H.T)  # [..., cycles, L]
 
 
+def windows_matmul_torch(span: torch.Tensor, h_t: torch.Tensor,
+                         step: int) -> torch.Tensor:
+    """[C, n] float32 ``span`` -> [C, cycles, L]: the R-sample windows at
+    0, step, 2 step, ... (every one that fits) of every channel against
+    ``h_t`` ([R, L], the phase filters transposed), on ``span``'s
+    device."""
+    return torch.matmul(span.unfold(-1, h_t.shape[0], step), h_t)
+
+
 @dataclass
 class _StreamState:
     buffer: np.ndarray          # [C, n] f32 backlog starting at abs index base
@@ -83,10 +99,16 @@ class _StreamState:
 
 
 class PolyphaseResampler:
-    """Streaming rational resampler for [C, n] float32 audio."""
+    """Streaming rational resampler for [C, n] float32 audio.
+
+    ``use_device=True`` runs the filter product on ``device``, by default
+    the current CUDA card (construction raises without one; tests pass
+    ``"cpu"``).  The FIFO and the bookkeeping stay on the host, and
+    ``process`` returns numpy in both routes."""
 
     def __init__(self, in_rate: int, out_rate: int, channels: int,
-                 taps_per_phase: int = 24, use_device: bool = False):
+                 taps_per_phase: int = 24, use_device: bool = False,
+                 device=None):
         self.in_rate = in_rate
         self.out_rate = out_rate
         self.channels = channels
@@ -94,9 +116,12 @@ class PolyphaseResampler:
             in_rate, out_rate, taps_per_phase)
         self.R = self.H.shape[1]
         self.taps_per_phase = taps_per_phase
+        self.use_device = use_device
+        self.device = None
         if use_device:
-            raise NotImplementedError(
-                "the device resampler is not yet ported")
+            self.device = make_compute_context(device).device
+            self._h_t = torch.from_numpy(
+                np.ascontiguousarray(self.H.T)).to(self.device)
         self._state: Optional[_StreamState] = None
 
     @property
@@ -129,7 +154,16 @@ class PolyphaseResampler:
         if ncycles == 0:
             return np.zeros((self.channels, 0), np.float32)
         starts = (st.next_cycle + np.arange(ncycles)) * self.M + self.r0 - st.base
-        out = _windows_matmul_np(st.buffer, self.H, starts)
+        if self.use_device:
+            check_fp32_matmul()
+            # the FIFO's span from the first window's start to the last
+            # window's end: exactly ncycles windows
+            span = np.ascontiguousarray(
+                st.buffer[:, int(starts[0]):int(starts[-1]) + self.R])
+            out = windows_matmul_torch(torch.from_numpy(span).to(self.device),
+                                       self._h_t, self.M).cpu().numpy()
+        else:
+            out = _windows_matmul_np(st.buffer, self.H, starts)
         out = out.reshape(self.channels, ncycles * self.L)
         st.next_cycle += ncycles
         # drop consumed history: keep from the next cycle's window start

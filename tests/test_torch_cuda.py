@@ -1,7 +1,11 @@
 """The port's kernels on an NVIDIA card: the frame kernel (yuv and RGBA /
 BGRA targets) and the motion search (SAD and SSD) against their plain torch
 versions on the same CUDA tensors, and the audio folds against the host
-loop.  Marked ``cuda``; they skip where there is no card.  Run them on the
+loop; the batch paths: the ladder's products (<= 1 LSB against the plain
+composite, and raising under the TF32 switches), the batched fold (exact),
+the device resampler (< 1e-4 against the host route) and the SRC stage's
+bookkeeping, and the mixing wall's plan path (<= 1 LSB) and per-cell path
+(0 LSB, one frame-kernel launch per stream).  Marked ``cuda``; they skip where there is no card.  Run them on the
 card with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerance: 0 LSB for pixels (the frame kernels are bit-exact against the
 plain version), exact for motion vectors and audio.  The frame cases cover
@@ -14,9 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from swiftvideo_tpu_torch.core import TimePoint
 from swiftvideo_tpu_torch.media import PixelFormat as PF
-from swiftvideo_tpu_torch.ops import audio, composite, frame, motion
-from swiftvideo_tpu_torch.ops.uniforms import rect_uniforms
+from swiftvideo_tpu_torch.media.audio import AudioFormat, AudioSample
+from swiftvideo_tpu_torch.mix.src_audio import AudioSampleRateConversion
+from swiftvideo_tpu_torch.ops import (audio, composite, frame, matscale,
+                                      motion, resample)
+from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms, rect_uniforms
+from swiftvideo_tpu_torch.parallel import MixingWall
 
 pytestmark = pytest.mark.cuda
 
@@ -273,3 +282,166 @@ def test_audio_folds_equal_host_on_card(card):
     out_w = audio.mix_s16_device_windowed(torch.from_numpy(win).to(card),
                                           gains, starts, ends)
     assert np.array_equal(out_w.cpu().numpy(), host_w)
+
+
+# --- the batch paths: ladder, resampler, wall (torch ops around K1) -------
+
+def _y420p(rng, w, h, device, n=None):
+    lead = () if n is None else (n,)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, lead + shape, np.int64)
+                                .astype(np.uint8)).to(device)
+    return [u8(h, w), u8(h // 2, w // 2), u8(h // 2, w // 2)]
+
+
+def _plain_scale(card, planes, in_size, out_size):
+    return composite.composite_stack_torch(
+        PF.y420p, out_size, [(planes, PF.y420p,
+                              identity_uniforms(in_size, out_size))], card)
+
+
+@pytest.mark.parametrize("rung", [(1280, 720), (854, 480), (640, 360)],
+                         ids=lambda r: f"{r[0]}x{r[1]}")
+def test_ladder_rung_within_one_lsb_of_plain_on_card(card, rung):
+    planes = _y420p(np.random.default_rng(rung[0]), 1920, 1080, card)
+    plan = matscale.plan_scale(identity_uniforms((1920, 1080), rung), rung,
+                               (1080, 1920))
+    got = matscale.scale_y420p(planes, plan)
+    want = _plain_scale(card, planes, (1920, 1080), rung)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == torch.uint8 and g.shape == w.shape
+        assert int((g.int() - w.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("switch", ["allow_tf32", "precision high"])
+def test_ladder_and_resampler_raise_under_tf32_on_card(card, switch):
+    """The TF32 switches would put the products on TF32 and lose the 1 LSB
+    contract: the calls raise instead."""
+    planes = _y420p(np.random.default_rng(0), 1920, 1080, card)
+    plan = matscale.plan_scale(identity_uniforms((1920, 1080), (640, 360)),
+                               (640, 360), (1080, 1920))
+    rs = resample.PolyphaseResampler(44100, 48000, 2, use_device=True,
+                                     device=card)
+    before = torch.get_float32_matmul_precision()
+    try:
+        if switch == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        with pytest.raises(RuntimeError, match="full float32"):
+            matscale.scale_y420p(planes, plan)
+        with pytest.raises(RuntimeError, match="full float32"):
+            rs.process(np.zeros((2, 4096), np.float32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision(before)
+    got = matscale.scale_y420p(planes, plan)
+    want = _plain_scale(card, planes, (1920, 1080), (640, 360))
+    assert max(int((g.int() - w.int()).abs().max())
+               for g, w in zip(got, want)) <= 1
+
+
+def test_batched_fold_equals_host_on_card(card):
+    rng = np.random.default_rng(5)
+    b, s, n = 8, 6, 960 * 2
+    srcs = rng.integers(-32768, 32768, (b, s, n), np.int64).astype(np.int16)
+    gains = rng.uniform(0.0, 1.5, (b, s, 2)).astype(np.float32)
+    base = rng.integers(-32768, 32768, (b, n), np.int64).astype(np.int16)
+    out = audio.mix_s16_device_batched(torch.from_numpy(srcs).to(card), gains,
+                                       base=torch.from_numpy(base).to(card))
+    assert out.is_cuda
+    out = out.cpu().numpy()
+    for k in range(b):
+        host = base[k].copy()
+        for j in range(s):
+            audio.apply_mix_s16(srcs[k, j], gains[k, j], host)
+        assert np.array_equal(out[k], host)
+
+
+def test_device_resampler_matches_host_on_card(card):
+    """Tolerance < 1e-4: the JAX package's bound between its routes."""
+    rng = np.random.default_rng(6)
+    dev = resample.PolyphaseResampler(44100, 48000, 8, use_device=True,
+                                      device=card)
+    host = resample.PolyphaseResampler(44100, 48000, 8)
+    for n in (44100, 17, 4096, 1):
+        x = rng.standard_normal((8, n)).astype(np.float32)
+        a, b = dev.process(x), host.process(x)
+        assert a.shape == b.shape
+        if a.size:
+            assert np.abs(a - b).max() < 1e-4
+
+
+def test_src_device_route_bookkeeping_on_card(card):
+    rng = np.random.default_rng(7)
+    stages = [AudioSampleRateConversion(48000, 2, AudioFormat.s16i,
+                                        use_device=flag) for flag in (True,
+                                                                      False)]
+    outs = ([], [])
+    pts = TimePoint(0, 44100)
+    for n in (1024, 333, 4410, 7):
+        pcm = rng.integers(-20000, 20000, 2 * n, np.int64).astype(np.int16)
+        for stage, out in zip(stages, outs):
+            r = stage(AudioSample(buffers=(pcm,), frequency=44100, channels=2,
+                                  format=AudioFormat.s16i, sample_count=n,
+                                  pts_value=pts, id_asset="mic",
+                                  id_workspace="w"))
+            out += [r.value()] if r.value() is not None else []
+        pts = pts + TimePoint(n, 44100)
+    for stage, out in zip(stages, outs):
+        out += stage.flush()
+    assert stages[0].device.type == "cuda"
+    assert len(outs[0]) == len(outs[1]) > 2
+    for a, b in zip(*outs):
+        assert a.number_samples() == b.number_samples()
+        assert (a.pts().value, a.pts().scale) == (b.pts().value, b.pts().scale)
+        assert np.abs(a.data()[0].astype(int) - b.data()[0].astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("n", [16, 14], ids=["aligned 16", "blank-fill 14"])
+def test_wall_plan_and_per_cell_paths_on_card(card, n):
+    """Plan path <= 1 LSB against the plain composite of each stream;
+    per-cell path 0 LSB with one frame-kernel launch per stream; audio
+    equal to the host sum."""
+    rng = np.random.default_rng(n)
+    sw, sh = 192, 108
+    wall = MixingWall(n_streams=n, stream_size=(sw, sh), canvas_size=(256, 128))
+    assert wall.device.type == "cuda" and wall.aligned == (n == 16)
+    ys, us, vs = _y420p(rng, sw, sh, card, n)
+    pcm = rng.integers(-32768, 32768, (n, 96), np.int64).astype(np.int16)
+    tw, th = wall.tile
+    unis = wall.default_uniforms()
+    unis[0] = identity_uniforms((sw, sh), (tw, th), opacity=0.5).pack()
+    launches = frame.launches
+    plan_out = wall.step(ys, us, vs, wall.shard(pcm))
+    assert frame.launches == launches
+    cell_out = wall.step(ys, us, vs, wall.shard(pcm), uniforms=unis)
+    assert frame.launches == launches + n
+    host = np.clip(pcm.astype(np.int64).sum(0), -32768, 32767)
+    for out in (plan_out, cell_out):
+        assert out[3].is_cuda and np.array_equal(out[3].cpu().numpy(), host)
+    for s in range(16):
+        cells, cells_k = _cell(plan_out, s, 4, wall.tile), \
+            _cell(cell_out, s, 4, wall.tile)
+        if s >= n:
+            for cell in (cells, cells_k):
+                assert int(cell[0].max()) == 0
+                assert all(bool((p == 128).all()) for p in cell[1:])
+            continue
+        planes = [ys[s], us[s], vs[s]]
+        want = _plain_scale(card, planes, (sw, sh), (tw, th))
+        assert max(int((g.int() - w.int()).abs().max())
+                   for g, w in zip(cells, want)) <= 1
+        want_k = composite.composite_stack_torch(
+            PF.y420p, (tw, th), [(planes, PF.y420p, unis[s])], card)
+        assert all(torch.equal(g, w) for g, w in zip(cells_k, want_k))
+
+
+def _cell(wall_planes, s, gw, tile):
+    """Cell ``s`` of a gw-wide wall's three planes."""
+    r, c = divmod(s, gw)
+    tw, th = tile
+    return [p[r * h:(r + 1) * h, c * w:(c + 1) * w]
+            for p, (w, h) in zip(wall_planes, ((tw, th), (tw // 2, th // 2),
+                                               (tw // 2, th // 2)))]

@@ -25,6 +25,8 @@ import json, sys
 import numpy as np
 import swiftvideo_tpu_torch
 import swiftvideo_tpu_torch.interop
+import swiftvideo_tpu_torch.ops.matscale
+import swiftvideo_tpu_torch.parallel
 from swiftvideo_tpu_torch.core import Bus, EventBox, StepClock, TimePoint, Tx
 from swiftvideo_tpu_torch.media import PixelFormat, create_picture_sample
 from swiftvideo_tpu_torch.scene import Composition, Element, ElementState, Scene
@@ -84,6 +86,17 @@ def test_port_sources_import_no_jax_triton_or_jax_package():
                       if n.split(".")[0] in _BANNED]
     assert len(_port_files()) > 30
     assert found == []
+
+
+def test_scan_covers_the_batch_paths():
+    """The scan reaches the packages added after the first slice: the
+    ladder's products, the resampler's device route and the wall."""
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"swiftvideo_tpu_torch/ops/matscale.py",
+            "swiftvideo_tpu_torch/ops/fp32.py",
+            "swiftvideo_tpu_torch/ops/resample.py",
+            "swiftvideo_tpu_torch/parallel/__init__.py",
+            "swiftvideo_tpu_torch/parallel/wall.py"} <= names
 
 
 def test_port_never_imports_jax_or_triton():
