@@ -35,7 +35,23 @@ started together) and drives the port's paths at full size:
   each): its plan path within 1 LSB of the plain composite of every
   stream, its per-cell path (one frame-kernel launch per stream, exactly
   64 a tick) at 0 LSB, the audio equal to the host sum, and 60 streams on
-  the same grid (blank excess cells).
+  the same grid (blank excess cells);
+* the two-stage motion search (phase 17): ``me_fullsearch_pyramid`` at
+  1080p and 4K, 16/64, refine 2, SSD through ``run_compute_kernel`` and SAD
+  through its entry point, one launch of the SSD kernel's coarse mode
+  (stride-2 grid) and one of the refine kernel a frame, equal to its plain
+  version on the card, with the blocks that differ from the exhaustive
+  search printed for information and the refine as torch ops timed beside
+  its kernel;
+* packed 4:2:2 (phase 18): yuvs and zvuy cameras onto a y420p canvas through
+  ``registry.composite_frame`` and a VideoMixer tick (unpacked to y422p, one
+  frame-kernel launch, 0 LSB against the plain version) and a yuvs target;
+* the codec-fed station (phase 19): a SyntheticSource of uncompressed 1080p
+  frames and one of 44.1 kHz s16 audio through the transcoders (the audio
+  SRC on the device route, segmented to 1024 samples), the Composer with an
+  RGBA lower third on the card, and the uncompressed encoder; decoded again,
+  the program must equal the same graph run on the CPU.  The codec
+  backends found on the machine are printed first.
 
 Every kernel comparison is exact: the frame kernels are bit-exact against
 the plain version, so one differing pixel fails the run; the float32
@@ -89,7 +105,17 @@ REPLACES = {"K1": "swiftvideo_tpu/ops/pallas_frame.py:127",
             "K2": "swiftvideo_tpu/ops/pallas_frame.py:1100",
             "K3": "swiftvideo_tpu/ops/pallas_frame.py:1524",
             "K4": "swiftvideo_tpu/ops/motion.py:260",
-            "K5": "swiftvideo_tpu/ops/motion.py:982"}
+            "K5": "swiftvideo_tpu/ops/motion.py:982",
+            # the pyramid's two stages: the grouped-conv coarse program and
+            # the refine program (both XLA, around no Pallas kernel)
+            "coarse": "swiftvideo_tpu/ops/motion.py:537",
+            "refine": "swiftvideo_tpu/ops/motion.py:1265"}
+# the two-stage search (phase 17) and the codec-fed station (phase 19): the
+# refine's half-width, and the station's video frames and 10 ms audio
+# packets at 44.1 kHz
+REFINE = 2
+PYRAMID_SIZES = (("1080p", (1080, 1920)), ("4K", (2160, 3840)))
+STATION_FRAMES, STATION_AUDIO = 8, 30
 
 
 def fail(msg: str) -> None:
@@ -666,6 +692,450 @@ def batch_phases(dev, smi, rng):
             "bound_ms": k1_bms, "bound_by": k1_by, "library_ms": None}
 
 
+def pyramid_frames(h, w, seed, dev):
+    """(cur, ref) luma on ``dev``: smooth content (the JAX pyramid test's
+    sinusoids) with noise in [-4, 4], and cur the same content moved by
+    (3, -5), an odd shift the stride-2 grid misses, with its own noise."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h + 3, 0:w + 5].astype(np.float64)
+    base = (np.sin(yy / 9.0) + np.cos(xx / 7.0) + 2.0) * 60.0
+
+    def noisy(a):
+        return torch.from_numpy(np.clip(a + r.integers(-4, 5, a.shape), 0,
+                                        255).astype(np.uint8)).to(dev)
+    return noisy(base[:h, 5:]), noisy(base[3:, :w])
+
+
+def grid_candidates(h, w, motion, stride):
+    """Candidates of the coarse stage's ``stride`` grid summed over the
+    blocks (tx - ox - d_lo and ty - ylo multiples of ``stride``), and the
+    candidates of the refine stage (inside each block's window at most
+    (2 REFINE + 1)^2; all of them, as an upper count)."""
+    d_lo = BLOCK // 2 - SEARCH // 2
+    ox = np.arange(w // BLOCK) * BLOCK
+    oy = np.arange(h // BLOCK) * BLOCK
+    xlo, xhi = motion.search_bounds(ox, BLOCK, SEARCH, w)
+    ylo, yhi = motion.search_bounds(oy, BLOCK, SEARCH, h)
+    nx = sum(sum(1 for tx in range(a, b) if (tx - o - d_lo) % stride == 0)
+             for o, a, b in zip(ox, xlo, xhi))
+    ny = sum(len(range(a, b, stride)) for a, b in zip(ylo, yhi))
+    return nx * ny, len(ox) * len(oy) * (2 * REFINE + 1) ** 2
+
+
+def pyramid_phase(dev, ctx, smi, luma_sample):
+    """Phase 17: the two-stage search through the registry (ssd, its
+    defaults) and its entry point (sad) at 1080p and 4K, against its plain
+    version on the card; the coarse and refine launches' times.  Returns
+    the kernels-line rows of K5's coarse mode and the refine kernel."""
+    from swiftvideo_tpu_torch.media import PixelFormat, create_picture_sample
+    from swiftvideo_tpu_torch.ops import composite, frame, motion, registry
+    kernel = registry.default_compute_kernel_from_string(
+        "me_fullsearch_pyramid")
+    rows, parts, launched = {}, [], {}
+    errs = {"coarse": 0, "refine": 0}
+    for res, (h, w) in PYRAMID_SIZES:
+        cur, ref = pyramid_frames(h, w, 17, dev)
+        stride = motion.coarse_stride(w)
+        for metric in ("ssd", "sad"):
+            frame.launches = motion.launches = composite.calls = 0
+            motion.route_launches.update(dict.fromkeys(motion.route_launches,
+                                                       0))
+            if metric == "ssd":   # the registry calls it with its defaults
+                mv = registry.run_compute_kernel(
+                    ctx, [luma_sample(cur), luma_sample(ref)],
+                    create_picture_sample((w // BLOCK, h // BLOCK),
+                                          PixelFormat.RGBA, asset_id="mv",
+                                          workspace_id="w"),
+                    kernel).planes()[0]
+            else:
+                mv = motion.me_fullsearch_pyramid(cur, ref, BLOCK, SEARCH,
+                                                  REFINE, metric)
+            torch.cuda.synchronize()
+            routes = {k: n for k, n in motion.route_launches.items() if n}
+            if routes != {motion.COARSE_KERNEL: 1, motion.REFINE_KERNEL: 1}:
+                fail(f"pyramid {metric} {res}: launches {routes}")
+            if metric == "ssd":
+                launched[res] = routes
+            per_frame = motion.launches
+            want = motion.me_fullsearch_pyramid_torch(cur, ref, BLOCK, SEARCH,
+                                                      REFINE, metric)
+            if not (mv.is_cuda and torch.equal(mv, want)):
+                fail(f"pyramid {metric} {res}: the kernels' MV map differs "
+                     f"from the plain version's in "
+                     f"{int((mv != want).any(-1).sum())} blocks")
+            full = motion.me_fullsearch(cur, ref, BLOCK, SEARCH, metric)
+            off = int((mv != full).any(-1).sum())
+            parts.append(f"{metric} {res}: equal to plain, launches "
+                         f"{per_frame} a frame, {off} of "
+                         f"{mv.shape[0] * mv.shape[1]} blocks differ from the "
+                         f"exhaustive {motion.KERNELS[metric]}")
+        # each stage against its own plain version on the same inputs: the
+        # refine re-scores around the coarse pick, so the whole map alone
+        # could hide a coarse pick one grid step off (the search-62 grid at
+        # 1080p puts dx on odd tx at the left edge)
+        searches = (SEARCH, 62) if res == PYRAMID_SIZES[0][0] else (SEARCH,)
+        for search in searches:
+            got = motion.me_coarse(cur, ref, BLOCK, search, stride)
+            want = motion.me_coarse_torch(cur, ref, BLOCK, search, stride)
+            e = int((got - want).abs().max())
+            errs["coarse"] = max(errs["coarse"], e)
+            if got.dtype != torch.int32 or e:
+                fail(f"pyramid coarse {res} {BLOCK}/{search}: the kernel's "
+                     f"vectors differ from the plain version's in "
+                     f"{int((got != want).any(-1).sum())} blocks (max {e})")
+        raw = motion.me_coarse_torch(cur, ref, BLOCK, SEARCH, stride)
+        for metric in ("ssd", "sad"):
+            got = motion.me_refine(cur, ref, raw, BLOCK, SEARCH, REFINE,
+                                   metric)
+            want = motion.refine_torch(cur, ref, raw, BLOCK, SEARCH, REFINE,
+                                       metric)
+            e = max_err([got], [want])
+            errs["refine"] = max(errs["refine"], e[0])
+            if e[1]:
+                fail(f"pyramid refine {metric} {res}: the kernel's map differs "
+                     f"from the plain version's around the same coarse "
+                     f"vectors in {e[1]} channels (max {e[0]})")
+        parts.append(f"{res}: coarse vectors equal to plain (search "
+                     f"{', '.join(map(str, searches))}), refine maps equal to "
+                     f"plain (ssd, sad)")
+
+        def coarse_call(cur=cur, ref=ref, stride=stride):
+            return motion.me_coarse(cur, ref, BLOCK, SEARCH, stride)
+
+        def refine_call(cur=cur, ref=ref, raw=raw):
+            return motion.me_refine(cur, ref, raw, BLOCK, SEARCH, REFINE,
+                                    "ssd")
+
+        def refine_plain(cur=cur, ref=ref, raw=raw):
+            return motion.refine_torch(cur, ref, raw, BLOCK, SEARCH, REFINE,
+                                       "ssd")
+
+        def pyramid_call(cur=cur, ref=ref):
+            return motion.me_fullsearch_pyramid(cur, ref, BLOCK, SEARCH,
+                                                REFINE, "ssd")
+
+        coarse_plain = timed_ms(lambda: motion.me_coarse_torch(
+            cur, ref, BLOCK, SEARCH, stride), reps=3, batch=1, warmup=1)
+        t = {"coarse call": timed_ms(coarse_call, reps=10, batch=5),
+             "coarse device": device_ms(coarse_call, "motion_ssd_kernel"),
+             "refine call": timed_ms(refine_call, reps=10, batch=5),
+             "refine device": device_ms(refine_call, "motion_refine_kernel"),
+             "refine plain call": timed_ms(refine_plain, reps=5, batch=2),
+             "refine plain device": device_total_ms(refine_plain)[0],
+             "pyramid call": timed_ms(pyramid_call, reps=10, batch=5),
+             "coarse plain": coarse_plain}
+        grid, refine_cands = grid_candidates(h, w, motion, stride)
+        nbytes = 2 * h * w + (h // BLOCK) * (w // BLOCK) * 8
+        # the coarse stage: the cross term's 2 operations a pixel-candidate
+        # term of the stride-2 grid at the int8 tensor rate
+        c_bound = bound(nbytes, 2 * BLOCK * BLOCK * grid, INT8_OPS)
+        # the refine: its SSD cross term and r^2, 4 operations a term at
+        # the int8 tensor rate, against the frames and vectors once
+        r_bound = bound(nbytes + (h // BLOCK) * (w // BLOCK) * 4,
+                        4 * BLOCK * BLOCK * refine_cands, INT8_OPS)
+        if c_bound[0] > t["coarse device"] or r_bound[0] > t["refine device"]:
+            fail(f"pyramid {res}: a device time is below its bound")
+        rows[res] = (t, c_bound, r_bound)
+        grid_ops_ms = bound(0, 2 * BLOCK * BLOCK * grid, INT8_OPS)[0]
+        parts.append(
+            f"{res} stride {stride}: coarse call {t['coarse call']:.4f} device "
+            f"{t['coarse device']:.4f} plain {coarse_plain:.2f} bound "
+            f"{c_bound[0]:.6f} ({c_bound[1]}; the int8 operations of the "
+            f"grid's {grid} candidates alone {grid_ops_ms:.6f}); refine "
+            f"kernel call "
+            f"{t['refine call']:.4f} device {t['refine device']:.4f} bound "
+            f"{r_bound[0]:.6f} ({r_bound[1]}); refine as torch ops call "
+            f"{t['refine plain call']:.4f} device "
+            f"{t['refine plain device']:.4f}; pyramid call "
+            f"{t['pyramid call']:.4f}")
+    print("[17 pyramid, exact vs plain, ms] " + "; ".join(parts)
+          + f" | {smi}", flush=True)
+    t, c_bound, r_bound = rows[PYRAMID_SIZES[0][0]]
+    routes = launched[PYRAMID_SIZES[0][0]]
+    return [
+        {"name": f"motion_ssd_kernel (coarse, stride 2; 1080p {BLOCK}/"
+                 f"{SEARCH})", "route": "cuda",
+         "source": "swiftvideo_tpu_torch/csrc/motion_search.cu",
+         "replaces": REPLACES["coarse"],
+         "launches": routes[motion.COARSE_KERNEL],
+         "max_abs_err": errs["coarse"],
+         "ms": t["coarse call"], "device_ms": t["coarse device"],
+         "plain_ms": t["coarse plain"], "bound_ms": c_bound[0],
+         "bound_by": c_bound[1], "library_ms": None},
+        {"name": f"motion_refine_kernel (SSD, refine {REFINE}; 1080p)",
+         "route": "cuda",
+         "source": "swiftvideo_tpu_torch/csrc/motion_search.cu",
+         "replaces": REPLACES["refine"],
+         "launches": routes[motion.REFINE_KERNEL],
+         "max_abs_err": errs["refine"],
+         "ms": t["refine call"], "device_ms": t["refine device"],
+         "plain_ms": t["refine plain call"], "bound_ms": r_bound[0],
+         "bound_by": r_bound[1], "library_ms": None}]
+
+
+def packed_phase(dev, ctx, rng):
+    """Phase 18: packed 4:2:2 (yuvs, zvuy) cameras onto a y420p canvas
+    through ``registry.composite_frame`` and a VideoMixer tick (K1, 0 LSB
+    against the plain version), and a yuvs target (the plain fold as
+    y422p, packed again)."""
+    from swiftvideo_tpu_torch.core import EventBox, StepClock, TimePoint, Tx
+    from swiftvideo_tpu_torch.media import PixelFormat, create_picture_sample
+    from swiftvideo_tpu_torch.media.pixel import (packed422_to_planar,
+                                                  planar_to_packed422)
+    from swiftvideo_tpu_torch.mix import VideoMixer
+    from swiftvideo_tpu_torch.ops import composite, frame, registry
+    from swiftvideo_tpu_torch.ops.uniforms import rect_uniforms
+    from swiftvideo_tpu_torch.utils import matrix as m4
+    y420p, parts = PixelFormat.y420p, []
+    packed = torch.from_numpy(rng.integers(0, 256, (H, W, 2), np.int64)
+                              .astype(np.uint8)).to(dev)
+    for fmt in (PixelFormat.yuvs, PixelFormat.zvuy):
+        srcs = [([packed], fmt, rect_uniforms((W, H), (W, H), x=100.25,
+                                              y=60.5, w=1440, h=810,
+                                              opacity=0.85))]
+        frame.launches = composite.calls = 0
+        got = registry.composite_frame(ctx, y420p, (W, H), srcs)
+        torch.cuda.synchronize()
+        if (frame.launches, composite.calls) != (1, 0):
+            fail(f"{fmt.value} source: {frame.launches} K1 launches, "
+                 f"{composite.calls} plain composites")
+        err, above = max_err(got, composite.composite_stack_torch(
+            y420p, (W, H), srcs, dev))
+        if err > LSB or above:
+            fail(f"{fmt.value} source: K1 vs plain max abs err {err}")
+        # a VideoMixer tick with the packed camera, on the card and on the
+        # CPU (the plain version)
+        cam = create_picture_sample((W, H), fmt, asset_id="cam",
+                                    workspace_id="w")
+        cam = cam.with_(img=cam.img.with_buffers([packed]), revision="c",
+                        matrix=m4.ortho(W, H) @ m4.translation(100.25, 60.5, 1)
+                        @ m4.scale(1440, 810), opacity=0.85)
+        ticks = {}
+        for where in ("cuda", "cpu"):
+            clock = StepClock(TimePoint(1000, 30000))
+            mixer = VideoMixer(clock, workspace_id="w",
+                               frame_duration=TimePoint(1000, 30000),
+                               output_size=(W, H), output_format=y420p,
+                               compute_context=(ctx if where == "cuda" else
+                                                registry.make_compute_context(
+                                                    "cpu")), asset_id="mix")
+            out = []
+            keep = mixer >> Tx(lambda s: (out.append(s), EventBox.just(s))[1])
+            mixer.apply(EventBox.just(cam if where == "cuda" else cam.with_(
+                img=cam.img.with_buffers([packed.cpu()]))))
+            frame.launches = composite.calls = 0
+            clock.step()
+            torch.cuda.synchronize()
+            del keep
+            ticks[where] = (out, frame.launches, composite.calls)
+        out, k1, plain_calls = ticks["cuda"]
+        if len(out) != 1 or (k1, plain_calls) != (1, 0):
+            fail(f"{fmt.value} VideoMixer tick: {len(out)} frames, {k1} K1 "
+                 f"launches, {plain_calls} plain composites")
+        err_m, above_m = max_err(out[0].planes(), [
+            p.to(dev) for p in ticks["cpu"][0][0].planes()])
+        if err_m > LSB or above_m:
+            fail(f"{fmt.value} VideoMixer tick vs plain max abs err {err_m}")
+        parts.append(f"{fmt.value} source via registry and VideoMixer: K1 "
+                     f"launched, err {err} / {err_m} above0 {above} / "
+                     f"{above_m}")
+    base = torch.from_numpy(rng.integers(0, 256, (H, W, 2), np.int64)
+                            .astype(np.uint8)).to(dev)
+    srcs = [([packed], PixelFormat.zvuy, rect_uniforms(
+        (W, H), (W, H), x=0.5, y=0.25, w=960, h=540, opacity=0.7))]
+    frame.launches = composite.calls = 0
+    got = registry.composite_frame(ctx, PixelFormat.yuvs, (W, H), srcs,
+                                   target=[base])
+    planar = composite.composite_stack_torch(
+        PixelFormat.y422p, (W, H),
+        [([t.contiguous() for t in packed422_to_planar(
+            packed, PixelFormat.zvuy, torch)], PixelFormat.y422p, srcs[0][2])],
+        dev, target=[t.contiguous() for t in packed422_to_planar(
+            base, PixelFormat.yuvs, torch)])
+    err, above = max_err(got, [planar_to_packed422(planar, PixelFormat.yuvs,
+                                                   torch)])
+    if (err > LSB or above or frame.launches
+            or tuple(got[0].shape) != (H, W, 2) or not got[0].is_cuda):
+        fail(f"yuvs target: err {err}, {frame.launches} K1 launches")
+    parts.append(f"yuvs target (plain fold as y422p on the card): err {err} "
+                 f"above0 {above}")
+    print("[18 packed 4:2:2, tol 0 LSB] " + "; ".join(parts), flush=True)
+
+
+def codec_station(device, host_cams, ov_rgba, pcm):
+    """The codec-fed station on ``device``: a SyntheticSource of uncompressed
+    1080p y420p frames and one of uncompressed s16 44.1 kHz audio go through
+    the transcoders (the video one as it is; the audio one as
+    ``make_audio_transcoder`` builds it, with its SRC on the device route
+    on ``device``, segmented to 1024 samples), are decoded onto the
+    Composer's buses with an RGBA lower third, and the program is encoded
+    again.  Returns (program frames' planes, program
+    PCM, packets in, packets out, host s of the clock steps, ticks)."""
+    from swiftvideo_tpu_torch.codec import (AudioDecoder, AudioEncoder,
+                                            SyntheticSource, VideoDecoder,
+                                            VideoEncoder, asset_rename, flat,
+                                            make_video_transcoder)
+    from swiftvideo_tpu_torch.compose import Composer
+    from swiftvideo_tpu_torch.core import (Bus, EventBox, StepClock,
+                                           TimePoint, Tx, asset_filter)
+    from swiftvideo_tpu_torch.media import (AudioFormat, AudioSample,
+                                            BufferType, ImageBuffer,
+                                            MediaFormat, PictureSample,
+                                            PixelFormat, planes_for_format)
+    from swiftvideo_tpu_torch.mix import AudioSampleRateConversion
+    from swiftvideo_tpu_torch.ops import make_compute_context
+    from swiftvideo_tpu_torch.scene import (Composition, Element,
+                                            ElementState, Scene)
+    raw = MediaFormat.uncompressed
+    clock = StepClock(TimePoint(480, 48000))
+    comp = Composition(
+        name="program", canvas_size=(W, H),
+        frame_duration=TimePoint(1000, 30000),
+        audio_frame_duration=TimePoint(480, 48000), sample_rate=48000,
+        channel_count=2, scenes=(Scene(name="main", elements=(
+            Element(name="cam", initial_state=ElementState(
+                pic_pos=(0.0, 0.0), size=(float(W), float(H)))),
+            Element(name="lower", z_index=9, initial_state=ElementState(
+                pic_pos=(0.0, float(H - OV_H - 40)),
+                size=(float(W), float(OV_H)))))),), initial_scene="main")
+    audio_bus, picture_bus = Bus(clock), Bus(clock)
+    composer = Composer(clock, workspace_id="w", composition=comp,
+                        audio_bus=audio_bus, picture_bus=picture_bus,
+                        compute_context=make_compute_context(device))
+    venc_in = VideoEncoder(raw)
+    aenc_in = AudioEncoder(raw, frame_size=441)
+
+    def picture(i):
+        planes = host_cams[i % len(host_cams)]
+        img = ImageBuffer(PixelFormat.y420p, BufferType.cpu, (W, H),
+                          tuple(planes_for_format(PixelFormat.y420p, (W, H))),
+                          tuple(planes))
+        return PictureSample(img, "cam_file", "w")
+
+    def packet(i):
+        return AudioSample(buffers=(pcm[i],), frequency=44100, channels=2,
+                           format=AudioFormat.s16i, sample_count=441,
+                           pts_value=TimePoint(441 * i, 44100),
+                           id_asset="mic_file", id_workspace="w")
+
+    counts = {"in": 0, "out": 0}
+
+    def pull(encode, make, n):
+        def puller(i):
+            if i >= n:
+                return None
+            counts["in"] += 1
+            box = encode(make(i))
+            v = box.value()
+            return v[0] if isinstance(v, list) else v
+        return puller
+
+    vsrc = SyntheticSource(clock, pull(venc_in, picture, STATION_FRAMES),
+                           frame_duration=TimePoint(1000, 30000),
+                           asset_id="cam_file")
+    asrc = SyntheticSource(clock, pull(aenc_in, packet, STATION_AUDIO),
+                           frame_duration=TimePoint(441, 44100),
+                           asset_id="mic_file")
+    audio_tc = (asset_rename("cam") >> AudioDecoder()
+                >> flat(AudioSampleRateConversion(48000, 2, AudioFormat.s16i,
+                                                  use_device=True,
+                                                  device=device))
+                >> flat(AudioEncoder(raw, 1024)))
+
+    def onto(bus):
+        return flat(Tx(lambda s: (bus.append(EventBox.just(s)),
+                                  EventBox.nothing(None))[1]))
+
+    out_v, out_a = [], []
+
+    def collect(out):
+        def put(s):
+            counts["out"] += 1
+            out.append(s)
+            return EventBox.nothing(None)
+        return flat(Tx(put))
+
+    keep = [vsrc >> make_video_transcoder("cam", raw) >> flat(VideoDecoder())
+            >> onto(picture_bus),
+            asrc >> audio_tc >> flat(AudioDecoder()) >> onto(audio_bus),
+            picture_bus.subscribe(asset_filter("program")
+                                  >> flat(VideoEncoder(raw)) >> collect(out_v)),
+            audio_bus.subscribe(asset_filter("program")
+                                >> flat(AudioEncoder(raw, 1024))
+                                >> collect(out_a))]
+    composer.bind("cam", "cam")
+    composer.bind("lower", "lower")
+    ov = ImageBuffer(PixelFormat.RGBA, BufferType.cpu, (W, OV_H),
+                     tuple(planes_for_format(PixelFormat.RGBA, (W, OV_H))),
+                     (ov_rgba,))
+    picture_bus.append(EventBox.just(PictureSample(ov, "lower", "w")))
+    vsrc.play()
+    asrc.play()
+    t0 = time.perf_counter()
+    for _ in range(STATION_FRAMES * 10 // 3 + 30):
+        clock.step()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    vsrc.close()
+    asrc.close()
+    composer.close()
+    del keep
+    vdec, adec = VideoDecoder(), AudioDecoder()
+    frames = [[np.asarray(p) for p in vdec(c).value().planes()]
+              for c in out_v]
+    audio = [np.asarray(adec(c).value().data()[0]) for c in out_a]
+    return frames, audio, counts["in"], counts["out"], host_s, len(out_v)
+
+
+def station_phase(dev, rng, smi):
+    """Phase 19: the codec-fed station on the card against the same graph
+    on the CPU."""
+    from swiftvideo_tpu_torch.codec import (bitstream_backend,
+                                            ffmpeg_available,
+                                            libav_available)
+    from swiftvideo_tpu_torch.ops import composite, frame
+    print(f"[19 codec backends] libav_available() {libav_available()}, "
+          f"ffmpeg_available() {ffmpeg_available()}, bitstream_backend() "
+          f"{bitstream_backend()}", flush=True)
+    host_cams = camera_planes(rng, 3)
+    ov_rgba = overlay_plane(rng)
+    t = np.arange(441 * STATION_AUDIO) / 44100.0
+    tone = (np.sin(2 * np.pi * 440.0 * t) * 9000).astype(np.int16)
+    pcm = [np.stack([tone, tone // 3], axis=1)[441 * i:441 * (i + 1)]
+           .reshape(-1).copy() for i in range(STATION_AUDIO)]
+    frame.launches = composite.calls = 0
+    card = codec_station(dev, host_cams, ov_rgba, pcm)
+    k1, plain_calls = frame.launches, composite.calls
+    cpu = codec_station(torch.device("cpu"), host_cams, ov_rgba, pcm)
+    frames, audio, n_in, n_out, host_s, ticks = card
+    if ticks < STATION_FRAMES or k1 < ticks or plain_calls:
+        fail(f"station: {ticks} program frames, {k1} K1+K2 launches, "
+             f"{plain_calls} plain composites on the card")
+    if len(frames) != len(cpu[0]) or len(audio) != len(cpu[1]):
+        fail(f"station: {len(frames)} frames / {len(audio)} audio packets on "
+             f"the card, {len(cpu[0])} / {len(cpu[1])} on the CPU")
+    pix = sum(int((a != b).sum()) for fa, fb in zip(frames, cpu[0])
+              for a, b in zip(fa, fb))
+    d = [np.abs(a.astype(np.int32) - b.astype(np.int32))
+         for a, b in zip(audio, cpu[1])]
+    pcm_diff, pcm_max = sum(int((x > 0).sum()) for x in d), max(
+        (int(x.max()) for x in d), default=0)
+    # both runs take the SRC's device route, so the PCM is held exactly
+    if pix or pcm_diff or not audio:
+        fail(f"station: the card's program differs from the CPU run's in "
+             f"{pix} pixels and {pcm_diff} samples (max {pcm_max})")
+    mid = frames[-1][0]
+    print(f"[19 codec-fed station] {ticks} program frames {W}x{H} y420p, "
+          f"{len(audio)} audio packets of 1024; packets in {n_in} out {n_out};"
+          f" K1+K2 launches {k1}; against the CPU run: 0 pixels and 0 of "
+          f"{sum(x.size for x in d)} samples differ (exact); host "
+          f"{host_s / ticks * 1e3:.2f} ms "
+          f"per video tick (card),"
+          f" {cpu[4] / max(cpu[5], 1) * 1e3:.2f} (CPU); luma mean "
+          f"{float(mid.mean()):.2f} | {smi}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA card")
@@ -713,20 +1183,25 @@ def main() -> None:
     sass = kernel_sass(nvcc.library_path(motion.SOURCE))
     ptxas = ptxas_lines(nvcc.build_logs.get(motion.SOURCE.stem, ""))
     parts, sad_terms_per_op = [], 0
-    for metric, kname in motion.KERNELS.items():
-        # the instantiation the wrapper launches: kname<GROUP[metric]>
-        inst = f"{kname}ILi{motion.GROUP[metric]}E"
+    instances = {"sad": "ILi2E", "ssd": "ILi4ELb0E", "coarse": "ILi4ELb1E",
+                 "refine": ""}
+    names = dict(motion.KERNELS, coarse="motion_ssd_kernel",
+                 refine="motion_refine_kernel")
+    for metric, kname in names.items():
+        # the instantiation the wrapper launches: kname<GROUP[metric]> (the
+        # SSD kernel's exhaustive and coarse modes, <4, false> and <4, true>)
+        inst = f"{kname}{instances[metric]}"
         found = [k for k in sass if inst in k]
         if len(found) != 1:
             fail(f"cuobjdump shows {len(found)} functions named {inst}")
         ops = sass[found[0]]
         tensor = {o: ops[o] for o in TENSOR_OPCODES if ops[o]}
         byte_sad = {o: ops[o] for o in BYTE_SAD_OPCODES if ops[o]}
-        if metric == "ssd" and not tensor:
+        if metric in ("ssd", "coarse") and not tensor:
             fail(f"{kname}'s SASS holds no tensor-core instruction")
         if metric == "sad" and byte_sad:
             sad_terms_per_op = 4  # one lane-instruction: 4 bytes' |c - r|, accumulated
-        parts.append(f"{kname}<{motion.GROUP[metric]}>: "
+        parts.append(f"{kname} ({metric}): "
                      f"{ptxas.get(found[0], 'ptxas line not in the log')}; "
                      f"SASS {sum(ops.values())} instructions, tensor-core "
                      f"{tensor or 'none'}, byte-SIMD SAD {byte_sad or 'none'}, "
@@ -1100,6 +1575,9 @@ def main() -> None:
               for k in me_bounds) + f" | {smi}", flush=True)
 
     wall_k1 = batch_phases(dev, smi, rng)
+    pyramid_rows = pyramid_phase(dev, ctx, smi, luma_sample)
+    packed_phase(dev, ctx, rng)
+    station_phase(dev, rng, smi)
 
     frame_rows = [
         ("K1", "frame_composite (K1: planar-yuv cameras)", cam_srcs,
@@ -1130,6 +1608,7 @@ def main() -> None:
                         "plain_ms": plain[(key, res)],
                         "bound_ms": bms, "bound_by": by, "library_ms": None})
     kernels.append(wall_k1)
+    kernels.extend(pyramid_rows)
     print("[16 profiler] " + ("; ".join(profiler_notes) or "every profile "
                               "recorded every launch and activity"),
           flush=True)

@@ -12,8 +12,10 @@ per-asset chain —
            >> SoundAnimator >> audioMixer              (composer.swift:212-214)
 
 Ported from ``swiftvideo_tpu/compose/composer.py``: the chains run on the
-compute context's torch device, and the built-in Load / SetText media
-handlers are not yet ported (an ``action`` callback may claim them).
+compute context's torch device.  The built-in Load / PlayFile / StopFile /
+SetText handlers decode files and render text on the host through the
+port's codec layer (``codec/``), whose pictures the upload barrier moves to
+the device; an ``action`` callback still claims a command first.
 
 ``set_scene`` / ``set_state`` drive animator transitions with futures;
 ``run_command`` executes recursive command trees with ``after``
@@ -28,8 +30,8 @@ from typing import Dict, Optional, Tuple
 from ..core import Bus, Clock, TimePoint, asset_filter
 from ..media.audio import AudioFormat
 from ..media.pixel import PixelFormat
-from ..scene import (ComposerCommand, Composition, Element,
-                     ElementState, Scene)
+from ..scene import (ComposerCommand, Composition, Element, ElementState,
+                     LoadCommand, Scene, SetTextCommand)
 
 from ..mix.animator import PictureAnimator, SoundAnimator
 from ..mix.audio_mixer import AudioMixer
@@ -92,6 +94,11 @@ class Composer:
         # element.states[stateId]); populate via register_states() with the
         # extra_states mapping from proto.make_composition_from_pb
         self.named_states: Dict[str, Dict[str, ElementState]] = {}
+        # media assets owned by built-in Load/SetText command handling:
+        # asset_id -> (sources, decode chains) / rendered text sample
+        self._file_assets: Dict[str, Tuple[Tuple[object, ...],
+                                           Tuple[object, ...]]] = {}
+        self._text_assets: Dict[str, object] = {}
         if composition.initial_scene:
             self.set_scene(composition.initial_scene)
 
@@ -202,6 +209,13 @@ class Composer:
         # (composer.swift:219-222)
         pic_anim.set_state(element.initial_state, TimePoint(0, 1000))
         soun_anim.set_state(element.initial_state, TimePoint(0, 1000))
+        # a setText asset is a single static sample: (re-)publish it so
+        # the freshly-subscribed Repeater latches it regardless of
+        # setText/bind command order
+        text_sample = self._text_assets.get(asset_id)
+        if text_sample is not None:
+            from ..core import EventBox
+            self.picture_bus.append(EventBox.just(text_sample))
 
     def unbind(self, asset_id: str,
                element_id: Optional[str] = None) -> None:
@@ -230,8 +244,9 @@ class Composer:
         action returning nil silently SKIPS the bind,
         composer.swift:152-157), bind always executes here — after the
         action's future when one is returned.  Media variants an action
-        does not claim raise ComposerError: the built-in handlers are not
-        yet ported."""
+        does not claim fall through to the built-in handlers: Load ->
+        FileSource into the composer buses, SetText -> TextRenderer
+        sample published under the asset id."""
         done: Future = Future()
 
         def run_after(_=None):
@@ -297,32 +312,171 @@ class Composer:
         elif command.unbind is not None:
             self.unbind(command.unbind.asset_id)
             run_after()
-        elif (command.load_file is not None or command.play_file is not None
-              or command.stop_file is not None
-              or command.set_text is not None):
+        elif command.load_file is not None:
             fut = act()
             if fut is None:
-                self._media_not_ported(command)
+                fut = self._load_file(command.load_file)
+            forward(fut)
+        elif command.play_file is not None:
+            fut = act()
+            if fut is None:
+                fut = self._play_stop_file(command.play_file.asset_id, True)
+            forward(fut)
+        elif command.stop_file is not None:
+            fut = act()
+            if fut is None:
+                fut = self._play_stop_file(command.stop_file.asset_id,
+                                           False)
+            forward(fut)
+        elif command.set_text is not None:
+            fut = act()
+            if fut is None:
+                fut = self._set_text(command.set_text)
             forward(fut)
         else:
             run_after()
         return done
 
     # --- built-in media command handlers -----------------------------------
-    # The JAX package ships Load -> FileSource and SetText -> TextRenderer
-    # defaults; both reach its codec layer, which loads JAX.  Until the port
-    # has its own codec glue, an ``action`` callback must claim these
-    # commands.
+    # The reference delegates these to the app's action callback entirely
+    # (its examples wire FileSource/TextRenderer by hand); here the
+    # framework ships working defaults so a command manifest alone drives
+    # a composition (Rpc.public.proto:52-79).
 
-    def _media_not_ported(self, command: ComposerCommand) -> None:
-        kind = next(k for k in ("load_file", "play_file", "stop_file",
-                                "set_text")
-                    if getattr(command, k) is not None)
-        raise ComposerError(f"{kind}: built-in media handling is not yet "
-                            "ported; claim the command with an action")
+    def _load_file(self, cmd: LoadCommand) -> Future:
+        """Load -> FileSource demux -> decoders -> composer buses.
+
+        loop re-opens the file on drain (the subprocess demux pipes are
+        one-shot); close_on_end drops the asset when every track drains
+        (default keeps it loaded so play_file can restart it)."""
+        from ..codec.codecs import AudioDecoder, VideoDecoder
+        from ..codec.file_source import open_media_file_av
+        from ..core import EventBox, Tx
+        from ..media.coded import MediaType
+
+        fut: Future = Future()
+        if cmd.asset_id in self._file_assets:
+            fut.set_exception(ComposerError(
+                f"asset {cmd.asset_id!r} is already loaded"))
+            return fut
+
+        def open_sources():
+            vsrc, asrc = open_media_file_av(
+                self.clock, cmd.uri, asset_id=cmd.asset_id,
+                workspace_id=self.id_workspace,
+                sample_rate=self.composition.sample_rate,
+                channels=self.composition.channel_count)
+            sources = tuple(s for s in (vsrc, asrc) if s is not None)
+            vdec, adec = VideoDecoder(), AudioDecoder()
+
+            def route(sample):
+                if sample.media_type == MediaType.audio:
+                    box, bus = adec(sample), self.audio_bus
+                else:
+                    box, bus = vdec(sample), self.picture_bus
+                if box.is_just():
+                    v = box.value()
+                    for item in (v if isinstance(v, list) else [v]):
+                        bus.append(EventBox.just(item))
+                return EventBox.nothing(None)
+
+            chains = tuple(src >> Tx(route) for src in sources)
+            pending = [len(sources)]
+
+            def one_ended():
+                pending[0] -= 1
+                if pending[0] != 0:
+                    return
+                if cmd.loop:
+                    # one-shot demux pipes: loop by re-opening — DEFERRED
+                    # to a clock event, never recursively (a clip shorter
+                    # than the read-ahead window would otherwise re-open
+                    # inside its own play() stack until RecursionError)
+                    def reopen(_evt=None):
+                        old = self._file_assets.get(cmd.asset_id)
+                        if old is None:
+                            return        # unloaded while the event waited
+                        for s in old[0]:
+                            s.close()     # reap the drained generation
+                        try:
+                            self._file_assets[cmd.asset_id] = open_sources()
+                            for s in self._file_assets[cmd.asset_id][0]:
+                                s.play()
+                        except Exception:  # noqa: BLE001 - vanished mid-loop
+                            self.unload_asset(cmd.asset_id)
+                    # 1 ms ahead: StepClock runs at-or-before-now callbacks
+                    # synchronously, which would recurse right back here
+                    self.clock.schedule(
+                        self.clock.current() + TimePoint(1, 1000), reopen)
+                elif cmd.close_on_end:
+                    self.unload_asset(cmd.asset_id)
+
+            for s in sources:
+                s.on_end = one_ended
+            return sources, chains
+
+        try:
+            self._file_assets[cmd.asset_id] = open_sources()
+        except Exception as exc:  # noqa: BLE001
+            fut.set_exception(ComposerError(f"load {cmd.uri!r}: {exc}"))
+            return fut
+        if cmd.autoplay:
+            for s in self._file_assets[cmd.asset_id][0]:
+                s.play()
+        fut.set_result(True)
+        return fut
+
+    def _play_stop_file(self, asset_id: str, play: bool) -> Future:
+        fut: Future = Future()
+        entry = self._file_assets.get(asset_id)
+        if entry is None:
+            fut.set_exception(ComposerError(
+                f"no loaded file asset {asset_id!r}"))
+            return fut
+        for src in entry[0]:
+            src.play() if play else src.stop()
+        fut.set_result(True)
+        return fut
+
+    def _set_text(self, cmd: SetTextCommand) -> Future:
+        """Text -> tinted-RGBA PictureSample published under the asset id
+        (text.swift render path); the bind chain's Repeater keeps it live
+        at frame cadence.  Re-running setText with the same asset id
+        replaces the overlay content."""
+        from ..codec.text import render_text_rgba
+        from ..core import EventBox
+        from ..media.picture import BufferType, ImageBuffer, PictureSample
+        from ..media.pixel import planes_for_format
+
+        fut: Future = Future()
+        try:
+            rgba = render_text_rgba(cmd.value, cmd.font_size, cmd.color,
+                                    cmd.font_url or None)
+        except Exception as exc:  # noqa: BLE001
+            fut.set_exception(ComposerError(f"setText: {exc}"))
+            return fut
+        h, w = rgba.shape[:2]
+        img = ImageBuffer(pixel_format=PixelFormat.RGBA,
+                          buffer_type=BufferType.cpu, size=(w, h),
+                          planes=tuple(planes_for_format(PixelFormat.RGBA,
+                                                         (w, h))),
+                          buffers=(rgba,))
+        now = self.clock.current()
+        sample = PictureSample(img, cmd.asset_id, self.id_workspace,
+                               time_point=now, pts_value=now)
+        self._text_assets[cmd.asset_id] = sample
+        self.picture_bus.append(EventBox.just(sample))
+        fut.set_result(True)
+        return fut
 
     def unload_asset(self, asset_id: str) -> None:
-        """Drop an asset's bindings."""
+        """Drop a Load/SetText asset and its bindings (closeOnEnd path);
+        closes the demux sources so their subprocesses are reaped."""
+        entry = self._file_assets.pop(asset_id, None)
+        if entry is not None:
+            for src in entry[0]:
+                src.close()
+        self._text_assets.pop(asset_id, None)
         self.unbind(asset_id)
 
     # --- checkpoint / resume ----------------------------------------------
@@ -368,5 +522,9 @@ class Composer:
                 self.set_state(name, _mk_state(_dec(raw)))
 
     def close(self) -> None:
+        # stop and reap file assets first so drained/playing demux
+        # subprocesses don't outlive the mixers they feed
+        for asset_id in list(self._file_assets):
+            self.unload_asset(asset_id)
         self.video_mixer.close()
         self.audio_mixer.close()

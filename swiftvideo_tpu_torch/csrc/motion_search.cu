@@ -43,11 +43,36 @@
 // The winner is a lexicographic (score, key) minimum over the block, key =
 // (tx - xlo) * n_y + (ty - ylo): the first strict minimum of the oracle's
 // tx-outer, ty-inner scan, whatever the split of candidates over threads.
+//
+// Coarse mode (motion_ssd_kernel<4, true>, the first stage of the two-stage
+// search ops/motion.py: me_fullsearch_pyramid) replaces the JAX package's
+// motion.py::_me_mxu_program(grouped, raw=True, stride), which reduces in two
+// stages: over ty first by (inner, ty), inner = f32(partial) * 2^-4 + cy, then
+// over tx by (inner + cx, tx).  That is one lexicographic minimum of
+// (score, tx, inner, ty), which the kernel takes with key = (ix << 16) | iy.
+// With a candidate stride of 2 only every second tx of the global grid
+// (tx - ox - d_lo even) and every second ty of the window (ty - ylo even)
+// compete: every candidate is scored and the off-grid ones are left out of
+// the minimum.  It writes the raw integer vector (ox - tx, oy - ty), not the
+// RGBA map, for the refine stage.
 // Scores are float32 with each step rounded on its own (the file is compiled
 // with --fmad=false, and the intrinsics below say so again); the integer sums are
 // exact (SAD <= 65,280; |partial| <= 256 * 255^2 < 2^24), so their conversions to
 // float are exact.  The cost tables are built on the host in float64 and rounded
 // to float32 (ops/motion.py: tables), as the JAX package does.
+//
+// Refine (motion_refine_kernel): the pyramid's second stage, which the JAX
+// package runs in XLA outside Pallas (motion.py::_me_refine_program).  One
+// warp per macroblock stages its current block and the win x win patch
+// (win = 16 + 2 refine) around its coarse vector, clamped into the frame,
+// in shared memory; lane s scores candidate s of the (2 refine + 1)^2 in
+// tx-major order exactly (integer SAD or SSD terms, the float32 score in the
+// plain version's order), and a warp (score, s) minimum picks the first
+// minimum.  Candidates outside the macroblock's clamped window are left out;
+// none left gives the zero vector.  Its work is ~25 candidates a macroblock,
+// ~2 % of the coarse stage's; it exists because the same stage as torch ops
+// took about 20 times the coarse launch's device time on an H100
+// (chip_smoke.py phase 17, PERF.md).
 //
 // Bound: operations.  At 1080p / 16 / 64 the clamped windows hold 1.83e7
 // candidates, 4.7e9 pixel-candidate terms; the frames are 4 MB.  SAD: the terms
@@ -71,6 +96,7 @@ constexpr int kKSteps = 12;                 // row pairs of one tile's K (24 row
 constexpr int kPlanFields = 8;             // ints of a macroblock's plan row
 constexpr int kSadGroup = 2;                // macroblocks per CUDA block, SAD
 constexpr int kSsdGroup = 4;                // and SSD
+constexpr int kRefineWarps = 8;            // macroblocks per CUDA block, refine
 constexpr float kSadScale = 0x1.010102p+0f;  // float32(256 / 255): integer SAD -> UNORM * 256
 static_assert(kThreads == kChunk * (kChunk / kSadRun), "one SAD thread per column and run");
 static_assert(kWarps == (kChunk / 16) * (kChunk / kYHalf), "one SSD warp per tile group");
@@ -106,12 +132,22 @@ struct Shared {
   uint32_t cur[G][kBlock * kBlock / 4];     // the group's current blocks
   float red_s[2][kWarps];
   int red_k[2][kWarps];
+  float red_i[2][kWarps];  // coarse mode: the inner score of red_s
   float best_s[G];
   int best_k[G];
+  float best_i[G];
 };
 
 __device__ __forceinline__ bool better(float s, int k, float bs, int bk) {
   return s < bs || (s == bs && k < bk);
+}
+
+// Coarse mode: (score, tx, inner, ty) with key = (ix << 16) | iy.
+__device__ __forceinline__ bool better_coarse(float s, int k, float in, float bs, int bk,
+                                              float bin) {
+  if (s != bs) return s < bs;
+  if ((k >> 16) != (bk >> 16)) return k < bk;
+  return in < bin || (in == bin && k < bk);
 }
 
 // d = c + sum over the four bytes of |a - b|
@@ -163,6 +199,7 @@ __device__ void stage_current(const uint8_t* __restrict__ cur, int w, const int*
   if (tid < G) {
     s.best_s[tid] = __int_as_float(0x7f800000);  // +inf
     s.best_k[tid] = 0x7fffffff;
+    s.best_i[tid] = __int_as_float(0x7f800000);
   }
 }
 
@@ -255,36 +292,55 @@ __device__ void box_sums(Shared<G, true>& s) {
 }
 
 // (score, key) minimum of the block for macroblock k of the group, merged into
-// its running minimum by thread 0.  red_* alternate with k, so one barrier
-// keeps the next macroblock's partial minima off those being read.
-template <int G, bool kSq>
-__device__ void block_min(float best_s, int best_k, int k, Shared<G, kSq>& s) {
+// its running minimum by thread 0; in coarse mode the (score, tx, inner, ty)
+// minimum.  red_* alternate with k, so one barrier keeps the next macroblock's
+// partial minima off those being read.
+template <bool kCoarse>
+__device__ __forceinline__ bool better_of(float s, int k, float in, float bs, int bk,
+                                          float bin) {
+  if constexpr (kCoarse) {
+    return better_coarse(s, k, in, bs, bk, bin);
+  } else {
+    return better(s, k, bs, bk);
+  }
+}
+
+template <int G, bool kSq, bool kCoarse = false>
+__device__ void block_min(float best_s, int best_k, float best_i, int k, Shared<G, kSq>& s) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float so = __shfl_down_sync(0xffffffffu, best_s, off);
     const int ko = __shfl_down_sync(0xffffffffu, best_k, off);
-    if (better(so, ko, best_s, best_k)) {
+    float io = 0.0f;
+    if constexpr (kCoarse) io = __shfl_down_sync(0xffffffffu, best_i, off);
+    if (better_of<kCoarse>(so, ko, io, best_s, best_k, best_i)) {
       best_s = so;
       best_k = ko;
+      best_i = io;
     }
   }
   if ((tid & 31) == 0) {
     s.red_s[k & 1][tid >> 5] = best_s;
     s.red_k[k & 1][tid >> 5] = best_k;
+    if constexpr (kCoarse) s.red_i[k & 1][tid >> 5] = best_i;
   }
   __syncthreads();
   if (tid == 0) {
     float bs = s.best_s[k];
     int bk = s.best_k[k];
+    float bi = s.best_i[k];
     for (int i = 0; i < kWarps; ++i) {
-      if (better(s.red_s[k & 1][i], s.red_k[k & 1][i], bs, bk)) {
+      const float ri = kCoarse ? s.red_i[k & 1][i] : 0.0f;
+      if (better_of<kCoarse>(s.red_s[k & 1][i], s.red_k[k & 1][i], ri, bs, bk, bi)) {
         bs = s.red_s[k & 1][i];
         bk = s.red_k[k & 1][i];
+        bi = ri;
       }
     }
     s.best_s[k] = bs;
     s.best_k[k] = bk;
+    s.best_i[k] = bi;
   }
 }
 
@@ -310,6 +366,25 @@ __device__ void write_mvs(const int* __restrict__ plan, int first, int count, in
   o[1] = 128;  // rint(0.5 * 255), half to even
   o[2] = mv_u8[min(max(mvy, -max_mv), max_mv) + max_mv];
   o[3] = 255;
+}
+
+// Coarse mode: thread k writes the raw vector (ox - tx, oy - ty) of
+// macroblock k of the group as two int32, (0, 0) for an empty candidate set.
+template <int G, bool kSq>
+__device__ void write_raw(const int* __restrict__ plan, int first, int count, int* __restrict__ raw,
+                          Shared<G, kSq>& s) {
+  __syncthreads();
+  const int k = threadIdx.x;
+  if (k >= count) return;
+  const Plan p = read_plan(plan, first + k);
+  const int best_k = s.best_k[k];
+  int mvx = 0, mvy = 0;
+  if (best_k != 0x7fffffff) {
+    mvx = p.ox - (p.xlo + (best_k >> 16));
+    mvy = p.oy - (p.ylo + (best_k & 0xffff));
+  }
+  raw[2 * (first + k)] = mvx;
+  raw[2 * (first + k) + 1] = mvy;
 }
 
 // The widest candidate range of the group's macroblocks (chunks are counted
@@ -383,7 +458,7 @@ __global__ void __launch_bounds__(kThreads)
             }
           }
         }
-        block_min<G>(best_s, best_k, k, s);
+        block_min<G>(best_s, best_k, 0.0f, k, s);
       }
       __syncthreads();  // the next chunk overwrites the window
     }
@@ -391,12 +466,16 @@ __global__ void __launch_bounds__(kThreads)
   write_mvs<G>(plan, first, count, search, mv_u8, out, s);
 }
 
-template <int G>
+// kCoarse: the pyramid's coarse stage (candidates on the `stride` grid, the
+// two-stage minimum, raw vectors into `raw`); otherwise the exhaustive search
+// (RGBA map into `out`).
+template <int G, bool kCoarse>
 __global__ void __launch_bounds__(kThreads)
     motion_ssd_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ ref, int h,
                       int w, int search, const int* __restrict__ plan,
                       const int* __restrict__ groups, const float* __restrict__ axis,
-                      const uint8_t* __restrict__ mv_u8, uint8_t* __restrict__ out) {
+                      const uint8_t* __restrict__ mv_u8, uint8_t* __restrict__ out, int stride,
+                      int* __restrict__ raw) {
   extern __shared__ uint4 smem[];
   Shared<G, true>& s = *reinterpret_cast<Shared<G, true>*>(smem);
   using Gm = Geo<G>;
@@ -466,31 +545,136 @@ __global__ void __launch_bounds__(kThreads)
         }
         float best_s = __int_as_float(0x7f800000);  // +inf
         int best_k = 0x7fffffff;
+        float best_i = __int_as_float(0x7f800000);
+        const int odd = stride - 1;  // coarse mode: the grid's parity mask
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int x = x0 + g + 8 * (q >> 1);
             const int y = yw + 8 * i + 2 * t + (q & 1);
-            if (x < cx_n && y < cy_n) {
+            bool in = x < cx_n && y < cy_n;
+            if constexpr (kCoarse) {
+              in = in && ((p.di0 + cx0 + x) & odd) == 0 && ((cy0 + y) & odd) == 0;
+            }
+            if (in) {
               const int partial = sq[y * Gm::kSqStride + u + x] - 2 * acc[i][q];
-              const float score = __fadd_rn(
-                  __fadd_rn(__fmul_rn(static_cast<float>(partial), 0.0625f), cy[i][q & 1]),
-                  cx[q >> 1]);
-              const int key = (cx0 + x) * p.n_y + cy0 + y;
-              if (better(score, key, best_s, best_k)) {
-                best_s = score;
-                best_k = key;
+              const float inner =
+                  __fadd_rn(__fmul_rn(static_cast<float>(partial), 0.0625f), cy[i][q & 1]);
+              const float score = __fadd_rn(inner, cx[q >> 1]);
+              if constexpr (kCoarse) {
+                const int key = ((cx0 + x) << 16) | (cy0 + y);
+                if (better_coarse(score, key, inner, best_s, best_k, best_i)) {
+                  best_s = score;
+                  best_k = key;
+                  best_i = inner;
+                }
+              } else {
+                const int key = (cx0 + x) * p.n_y + cy0 + y;
+                if (better(score, key, best_s, best_k)) {
+                  best_s = score;
+                  best_k = key;
+                }
               }
             }
           }
         }
-        block_min<G>(best_s, best_k, k, s);
+        block_min<G, true, kCoarse>(best_s, best_k, best_i, k, s);
       }
       __syncthreads();  // the next chunk overwrites the window and the sums
     }
   }
-  write_mvs<G>(plan, first, count, search, mv_u8, out, s);
+  if constexpr (kCoarse) {
+    write_raw<G>(plan, first, count, raw, s);
+  } else {
+    write_mvs<G>(plan, first, count, search, mv_u8, out, s);
+  }
+}
+
+// The pyramid's refine stage: warp k of CUDA block b re-scores macroblock
+// b * kRefineWarps + k around its coarse vector raw[2 mb], raw[2 mb + 1].
+// metric 0 = SAD (cost: cost2 [n_d, n_d], x major), 1 = SSD (cost: axis
+// [n_d]); both indexed by t - o - d_lo through the plan's di0, dj0, as the
+// exhaustive kernels index them.  Writes the RGBA MV map.
+__global__ void __launch_bounds__(32 * kRefineWarps)
+    motion_refine_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ ref, int h,
+                         int w, int search, int refine, int metric, int n_mb,
+                         const int* __restrict__ plan, const int* __restrict__ raw, int n_d,
+                         const float* __restrict__ cost, const uint8_t* __restrict__ mv_u8,
+                         uint8_t* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  const int win = kBlock + 2 * refine, n_off = 2 * refine + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mb = blockIdx.x * kRefineWarps + warp;
+  if (mb >= n_mb) return;  // the warp's own macroblock only: no block barrier below
+  uint8_t* cb = reinterpret_cast<uint8_t*>(smem) + warp * (kBlock * kBlock + win * win);
+  uint8_t* patch = cb + kBlock * kBlock;
+  const Plan p = read_plan(plan, mb);
+  const int gy0 = min(max(p.oy - raw[2 * mb + 1] - refine, 0), h - win);
+  const int gx0 = min(max(p.ox - raw[2 * mb] - refine, 0), w - win);
+  for (int i = lane; i < kBlock * kBlock; i += 32) {
+    cb[i] = __ldg(cur + static_cast<size_t>(p.oy + (i >> 4)) * w + p.ox + (i & 15));
+  }
+  for (int i = lane; i < win * win; i += 32) {
+    const int r = i / win;
+    patch[i] = __ldg(ref + static_cast<size_t>(gy0 + r) * w + gx0 + i - r * win);
+  }
+  __syncwarp();
+  float best_s = __int_as_float(0x7f800000);  // +inf
+  int best_k = 0x7fffffff;
+  for (int k = lane; k < n_off * n_off; k += 32) {
+    const int ddx = k / n_off, ddy = k - ddx * n_off;
+    const int ty = gy0 + ddy, tx = gx0 + ddx;
+    if (ty < p.ylo || ty >= p.ylo + p.n_y || tx < p.xlo || tx >= p.xlo + p.n_x) continue;
+    const int ix = tx - p.xlo + p.di0, iy = ty - p.ylo + p.dj0;
+    const uint8_t* q = patch + ddy * win + ddx;
+    float score;
+    if (metric == 0) {
+      int sad = 0;
+      for (int r = 0; r < kBlock; ++r) {
+#pragma unroll
+        for (int c = 0; c < kBlock; ++c) sad += abs(cb[r * kBlock + c] - q[r * win + c]);
+      }
+      score = __fadd_rn(cost[ix * n_d + iy], __fmul_rn(static_cast<float>(sad), kSadScale));
+    } else {
+      int r2 = 0, cross = 0;
+      for (int r = 0; r < kBlock; ++r) {
+#pragma unroll
+        for (int c = 0; c < kBlock; ++c) {
+          const int v = q[r * win + c];
+          r2 += v * v;
+          cross += cb[r * kBlock + c] * v;
+        }
+      }
+      score = __fadd_rn(
+          __fadd_rn(__fmul_rn(static_cast<float>(r2 - 2 * cross), 0.0625f), cost[iy]), cost[ix]);
+    }
+    if (better(score, k, best_s, best_k)) {
+      best_s = score;
+      best_k = k;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float so = __shfl_down_sync(0xffffffffu, best_s, off);
+    const int ko = __shfl_down_sync(0xffffffffu, best_k, off);
+    if (better(so, ko, best_s, best_k)) {
+      best_s = so;
+      best_k = ko;
+    }
+  }
+  if (lane != 0) return;
+  int mvx = 0, mvy = 0;  // no candidate keeps the zero vector
+  if (best_k != 0x7fffffff) {
+    mvx = p.ox - (gx0 + best_k / n_off);
+    mvy = p.oy - (gy0 + best_k % n_off);
+  }
+  const int max_mv = search / 2;
+  uint8_t* o = out + 4 * mb;
+  o[0] = mv_u8[min(max(mvx, -max_mv), max_mv) + max_mv];
+  o[1] = 128;
+  o[2] = mv_u8[min(max(mvy, -max_mv), max_mv) + max_mv];
+  o[3] = 255;
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory.
@@ -532,11 +716,55 @@ extern "C" int sv_motion_search(const void* cur, const void* ref, int h, int w, 
                                                                    gr, co, lut, o);
   } else {
     const int smem = static_cast<int>(sizeof(Shared<kSsdGroup, true>));
-    const cudaError_t e = allow_smem(motion_ssd_kernel<kSsdGroup>, smem);
+    const cudaError_t e = allow_smem(motion_ssd_kernel<kSsdGroup, false>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    motion_ssd_kernel<kSsdGroup><<<n_groups, kThreads, smem, st>>>(c, r, h, w, search, pl, gr,
-                                                                   co, lut, o);
+    motion_ssd_kernel<kSsdGroup, false><<<n_groups, kThreads, smem, st>>>(
+        c, r, h, w, search, pl, gr, co, lut, o, 1, nullptr);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The coarse stage of the two-stage search: the SSD kernel's geometry, plan,
+// groups (kSsdGroup) and per-axis cost table, candidates on the `stride` grid
+// (1 or 2), the two-stage minimum of motion.py::_me_mxu_program.  raw:
+// [h / 16 * (w / 16), 2] int32 (mvx, mvy).  Launches on `stream` and returns
+// the launch's CUDA error code.
+extern "C" int sv_motion_coarse(const void* cur, const void* ref, int h, int w, int search,
+                                int stride, const void* plan, const void* groups, int n_groups,
+                                const void* axis, void* raw, void* stream) {
+  if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(Shared<kSsdGroup, true>));
+  const cudaError_t e = allow_smem(motion_ssd_kernel<kSsdGroup, true>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  motion_ssd_kernel<kSsdGroup, true><<<n_groups, kThreads, smem, st>>>(
+      static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(ref), h, w, search,
+      static_cast<const int*>(plan), static_cast<const int*>(groups),
+      static_cast<const float*>(axis), nullptr, nullptr, stride, static_cast<int*>(raw));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The refine stage of the two-stage search over n_mb macroblocks (plan rows of
+// ops/motion.py: plan) around raw: [n_mb, 2] int32 coarse vectors.  metric 0 =
+// SAD with cost = cost2 [n_d, n_d], 1 = SSD with cost = axis [n_d] (the
+// exhaustive kernels' tables, ops/motion.py: tables); mv_u8 [search / 2 * 2 +
+// 1] (ops/motion.py: pyramid_mv_u8).  out: [n_mb, 4] u8.  Launches on `stream`
+// and returns the launch's CUDA error code.
+extern "C" int sv_motion_refine(const void* cur, const void* ref, int h, int w, int search,
+                                int refine, int metric, const void* plan, int n_mb,
+                                const void* raw, int n_d, const void* cost, const void* mv_u8,
+                                void* out, void* stream) {
+  const int win = kBlock + 2 * refine;
+  if (refine < 0 || h < win || w < win) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = kRefineWarps * (kBlock * kBlock + win * win);
+  const cudaError_t e = allow_smem(motion_refine_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (n_mb + kRefineWarps - 1) / kRefineWarps;
+  motion_refine_kernel<<<blocks, 32 * kRefineWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(cur), static_cast<const uint8_t*>(ref), h, w, search, refine,
+      metric, n_mb, static_cast<const int*>(plan), static_cast<const int*>(raw), n_d,
+      static_cast<const float*>(cost), static_cast<const uint8_t*>(mv_u8),
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

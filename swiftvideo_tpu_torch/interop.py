@@ -10,7 +10,9 @@ two packages compute on the same data:
 * ``ImageUniforms`` as the packed float32 [29] vector (the same layout in
   both packages);
 * planes and PCM as numpy arrays (or u8 tensors, for a source list);
-* ``TimePoint``s by (value, scale).
+* ``TimePoint``s by (value, scale);
+* coded samples by their bytes, side data, media type and format (by
+  value) and provenance.
 
 Nothing here imports the JAX package: its objects are read by attribute.
 """
@@ -24,6 +26,8 @@ import torch
 
 from .core import TimePoint
 from .media.audio import AudioSample
+from .media.coded import (CodedMediaSample, MediaConstituent, MediaFormat,
+                          MediaType)
 from .media.picture import ImageBuffer, PictureSample
 from .media.pixel import BufferType, PixelFormat, planes_for_format
 from .ops.composite import packed
@@ -87,3 +91,35 @@ def audio_sample(sample) -> AudioSample:
         id_asset=sample.asset_id(), id_workspace=sample.workspace_id(),
         token_workspace=sample.workspace_token(),
         transform=np.array(sample.transform))
+
+
+def _optional_time(tp):
+    return None if tp is None else time_point(tp)
+
+
+def media_constituent(c) -> MediaConstituent:
+    """A JAX-package ``MediaConstituent`` (provenance record) as this
+    package's."""
+    return MediaConstituent(
+        id_asset=c.id_asset, pts=time_point(c.pts), dts=_optional_time(c.dts),
+        duration=_optional_time(c.duration),
+        normalized_pts=_optional_time(c.normalized_pts),
+        constituents=tuple(media_constituent(k) for k in c.constituents))
+
+
+def coded_media_sample(sample) -> CodedMediaSample:
+    """A JAX-package ``CodedMediaSample`` as this package's: the same
+    bytes and side data, its media type and format by value, its times and
+    provenance carried over."""
+    return CodedMediaSample(
+        buffer=bytes(sample.data()), pts_value=time_point(sample.pts()),
+        dts_value=time_point(sample.dts()),
+        media_type=MediaType(int(sample.media_type)),
+        media_format=MediaFormat(int(sample.media_format)),
+        id_asset=sample.asset_id(), id_workspace=sample.workspace_id(),
+        token_workspace=sample.workspace_token(),
+        time_point=time_point(sample.time()),
+        side={k: bytes(v) for k, v in sample.side_data().items()},
+        encoder=sample.encoder,
+        constituents_value=tuple(media_constituent(c)
+                                 for c in sample.constituents()))

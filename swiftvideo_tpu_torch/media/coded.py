@@ -166,16 +166,59 @@ def sps_from_avcdcr(sample: CodedMediaSample) -> bytes:
 
 def basic_media_description(sample: CodedMediaSample):
     """Parse stream parameters from codec config (sample.coded.swift:202-230).
-    Every format this describes (avc, hevc, vp8, vp9, av1, aac, opus) reads
-    its parameters with the codec layer's bitstream helpers, which are not
-    yet ported: those formats raise "not yet ported"."""
-    if sample.media_format in (MediaFormat.avc, MediaFormat.hevc,
-                               MediaFormat.vp8, MediaFormat.vp9,
-                               MediaFormat.av1, MediaFormat.aac,
-                               MediaFormat.opus):
-        raise MediaDescriptionError(
-            f"{sample.media_format.name}: stream description needs the codec "
-            "layer's bitstream module, which is not yet ported")
+    Uses the native bitstream helpers (codec.bitstream — C++ with a Python
+    fallback).  Beyond the reference's avc+aac pair, this also describes the
+    other formats the codec layer transports: hevc (SPS from the hvcC
+    config), vp8/vp9 (size is in-band in the keyframe payload), and opus
+    (OpusHead config)."""
+    from ..codec import bitstream
+    if sample.media_format == MediaFormat.avc:
+        sps = sps_from_avcdcr(sample)
+        width, height = bitstream.h264_sps_frame_size(sps)
+        return BasicVideoDescription(size=(width, height))
+    if sample.media_format == MediaFormat.hevc:
+        record = sample.side_data().get("config")
+        if record is None:
+            raise MediaDescriptionError("invalid metadata")
+        import struct
+        from ..codec.containers import params_from_hvcc
+        try:
+            sps_list = params_from_hvcc(record).get(33) or ()
+            if not sps_list:
+                raise ValueError("hvcC has no SPS")
+            size = bitstream.h265_sps_frame_size(sps_list[0])
+        except (ValueError, IndexError, struct.error) as e:
+            raise MediaDescriptionError(str(e)) from e
+        return BasicVideoDescription(size=size)
+    if sample.media_format.name in bitstream.IVF_FRAME_SIZE:
+        try:
+            size = bitstream.IVF_FRAME_SIZE[sample.media_format.name](
+                sample.data())
+        except (ValueError, IndexError) as e:
+            raise MediaDescriptionError(str(e)) from e
+        return BasicVideoDescription(size=size)
+    if sample.media_format == MediaFormat.aac:
+        asc = sample.side_data().get("config")
+        if asc is None:
+            raise MediaDescriptionError("invalid metadata")
+        channels, sample_rate, samples_per_packet = bitstream.aac_parse_asc(asc)
+        return BasicAudioDescription(sample_rate=float(sample_rate),
+                                     channel_count=channels,
+                                     samples_per_packet=samples_per_packet)
+    if sample.media_format == MediaFormat.opus:
+        head = sample.side_data().get("config")
+        if head is None:
+            raise MediaDescriptionError("invalid metadata")
+        import struct
+        from ..codec.containers import parse_opus_head
+        try:
+            info = parse_opus_head(head)
+        except (ValueError, IndexError, struct.error) as e:
+            raise MediaDescriptionError(str(e)) from e
+        # opus always decodes at 48 kHz; 960 samples = the canonical 20 ms
+        return BasicAudioDescription(sample_rate=48000.0,
+                                     channel_count=info["channels"],
+                                     samples_per_packet=960)
     raise MediaDescriptionError("unsupported")
 
 
@@ -213,9 +256,8 @@ def is_keyframe(sample: CodedMediaSample) -> bool:
             pos += 4 + n
         return False
     if sample.media_format == MediaFormat.av1:
-        raise MediaDescriptionError(
-            "av1: keyframe detection needs the codec layer's bitstream "
-            "module, which is not yet ported")
+        from ..codec.bitstream import av1_is_keyframe
+        return av1_is_keyframe(data)
     if sample.media_format == MediaFormat.vp8:
         return len(data) >= 1 and (data[0] & 1) == 0
     if sample.media_format == MediaFormat.vp9:

@@ -6,7 +6,7 @@ family A and family B blends, u8 quantize after every source) written as
 whole-grid torch ops on an explicit device.  It is the reference the
 frame kernel (ops/frame.py) is held against, the CPU path of the port, and
 on the card the route for targets the kernel does not take (y422p,
-y444p).
+y444p, and packed 4:2:2 targets, which fold as y422p).
 
 Bit-exactness with golden rests on doing the same float32 operations in
 the same order, each rounded on its own:
@@ -33,8 +33,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..media.pixel import (PixelFormat, num_planes,
-                           plane_array_shape)
+from ..media.pixel import (PixelFormat, num_planes, packed422_to_planar,
+                           plane_array_shape, planar_to_packed422)
 
 from .color import RGB2YUV, YUV2RGB
 
@@ -42,6 +42,7 @@ YUV_PLANAR = (PixelFormat.y420p, PixelFormat.y422p, PixelFormat.y444p)
 YUV_BIPLANAR = (PixelFormat.nv12, PixelFormat.nv21)
 RGBA_FAMILY = (PixelFormat.RGBA, PixelFormat.BGRA)
 YUV_FAMILY = YUV_PLANAR + YUV_BIPLANAR
+PACKED_422 = (PixelFormat.yuvs, PixelFormat.zvuy)
 
 _U8_TO_F = np.arange(256, dtype=np.float32) / np.float32(255.0)
 
@@ -283,18 +284,38 @@ def apply_composite(target: Sequence[torch.Tensor], out_fmt: PixelFormat,
     return luma + [torch.stack(pair, dim=-1)]
 
 
+def _unpack(packed: torch.Tensor, fmt: PixelFormat) -> List[torch.Tensor]:
+    """A packed 4:2:2 plane as contiguous y422p planes, by torch ops on its
+    own device."""
+    return [t.contiguous() for t in packed422_to_planar(packed, fmt, torch)]
+
+
+def unpack_sources(sources) -> list:
+    """``sources`` with every packed 4:2:2 (yuvs / zvuy) source as y422p
+    planes (the normalisation of golden.composite_stack)."""
+    return [(_unpack(planes[0], fmt), PixelFormat.y422p, uni)
+            if fmt in PACKED_422 else (planes, fmt, uni)
+            for planes, fmt, uni in sources]
+
+
 def composite_stack_torch(out_fmt: PixelFormat, size: Tuple[int, int],
                           sources, device: torch.device,
                           target=None) -> List[torch.Tensor]:
     """Clear (or start from ``target``) and fold z-sorted ``sources``
     (mix.video.swift:116-125 semantics).  ``sources``: sequence of
     (planes, in_fmt, ImageUniforms or packed [29] vector); planes are u8
-    tensors on ``device``."""
+    tensors on ``device``.  Packed 4:2:2 sources and targets go through
+    y422p planes, as golden.composite_stack does."""
     global calls
     calls += 1
     device = torch.device(device)
-    planes = (list(target) if target is not None
-              else clear_planes(out_fmt, size, device))
-    for src_planes, in_fmt, uni in sources:
-        planes = apply_composite(planes, out_fmt, src_planes, in_fmt, uni)
-    return planes
+    packed_out = out_fmt in PACKED_422
+    fold_fmt = PixelFormat.y422p if packed_out else out_fmt
+    if target is None:
+        planes = clear_planes(fold_fmt, size, device)
+    else:
+        planes = _unpack(target[0], out_fmt) if packed_out else list(target)
+    for src_planes, in_fmt, uni in unpack_sources(sources):
+        planes = apply_composite(planes, fold_fmt, src_planes, in_fmt, uni)
+    return ([planar_to_packed422(planes, out_fmt, torch)] if packed_out
+            else planes)

@@ -25,6 +25,16 @@ float32, as the JAX package builds them; the kernel does not evaluate
 takes the plain version for CPU tensors.  ``launches`` counts kernel
 launches, ``route_launches`` the launches of each kernel.
 
+``me_fullsearch_pyramid`` is the two-stage search of the JAX package's
+``motion.py::me_fullsearch_pyramid``: a coarse SSD search over a stride-2
+candidate grid (``motion_ssd_kernel`` in its coarse mode on the card, in
+place of the JAX package's ``_me_mxu_program``), then an exact re-score of
+the ``(2 refine + 1)^2`` candidates around each coarse pick with the SSD or
+SAD score (``motion_refine_kernel`` on the card: the same stage as torch
+ops, ``refine_torch``, took about 20 times the coarse launch's device time
+on an H100, ``chip_smoke.py`` phase 17).  It is not exhaustive, so it is
+held to the JAX pyramid, not to the oracles.
+
 The kernels' host-side arithmetic lives here, where the CPU tests reach
 it: ``plan`` (one row per macroblock: origin, clamped window, candidate
 counts, cost-table offsets; the kernels read it), the chunking of a
@@ -47,6 +57,13 @@ from . import nvcc
 SOURCE = nvcc.CSRC / "motion_search.cu"
 METRICS = ("sad", "ssd")
 KERNELS = {"sad": "motion_sad_kernel", "ssd": "motion_ssd_kernel"}
+# the SSD kernel's coarse mode (motion_ssd_kernel<4, true>) and the refine
+# kernel, the pyramid's two launches, by their launch counts
+COARSE_KERNEL = "motion_ssd_kernel (coarse)"
+REFINE_KERNEL = "motion_refine_kernel"
+# the pyramid's coarse stage: the first of these that divides the block
+# columns makes it the stride-2 grid, none the stride-1 (exhaustive) grid
+PYRAMID_GROUPS = (8, 6, 5, 4, 3, 2)
 KERNEL_BLOCK = 16     # the kernels' macroblock edge
 # the kernels' geometry (csrc/motion_search.cu, the k* constants of
 # GEOMETRY; build() checks the library's against it)
@@ -69,7 +86,8 @@ GEOMETRY = {"kBlock": KERNEL_BLOCK, "kChunk": CHUNK, "kThreads": THREADS,
 # kernel launches since import, in all and by kernel name; plain integers so
 # a run can show that its searches went through the kernels
 launches = 0
-route_launches = {name: 0 for name in KERNELS.values()}
+route_launches = {name: 0 for name in (*KERNELS.values(), COARSE_KERNEL,
+                                        REFINE_KERNEL)}
 _LAMBDA = 4.0
 _QPEX = 4.0
 _SAD_SCALE = np.float32(256.0 / 255.0)   # integer SAD -> UNORM*256 units
@@ -250,6 +268,23 @@ def _check(cur, ref, block: int, search: int, metric: str) -> torch.device:
     return cur.device
 
 
+def _on_card(cur, ref, block: int, search: int, metric: str) -> bool:
+    """True for CUDA frames (the kernels), False for CPU ones (the plain
+    versions); raises for any other device."""
+    dev = _check(cur, ref, block, search, metric)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"motion search runs on cuda, not {dev}")
+    return dev.type == "cuda"
+
+
+def _check_kernel_frames(cur, ref, block: int) -> None:
+    if block != KERNEL_BLOCK:
+        raise ValueError(f"the motion kernel takes {KERNEL_BLOCK}x"
+                         f"{KERNEL_BLOCK} blocks, not {block}")
+    if not (cur.is_contiguous() and ref.is_contiguous()):
+        raise ValueError("frames must be contiguous")
+
+
 def me_fullsearch_torch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
                         search: int = 64, metric: str = "sad") -> torch.Tensor:
     """Plain version: one whole-frame step per global displacement (dx
@@ -344,22 +379,198 @@ def _device_plan(h: int, w: int, search: int, group: int,
             torch.from_numpy(groups(h, w, group)).to(device))
 
 
+def coarse_stride(w: int, block: int = 16) -> int:
+    """The pyramid's coarse candidate stride for a ``w``-wide frame: 2 when
+    a group size of ``PYRAMID_GROUPS`` divides the block columns (the JAX
+    package's grouped program), else 1 (its dense exhaustive program)."""
+    wb = w // block
+    return 2 if any(wb % g == 0 for g in PYRAMID_GROUPS) else 1
+
+
+def me_coarse_torch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
+                    search: int = 64, stride: int = 2) -> torch.Tensor:
+    """Plain version of the pyramid's coarse stage (the JAX package's
+    ``_me_mxu_program(..., raw=True, stride)``): [H // block, W // block,
+    2] int32, the raw vector (mvx, mvy) = (ox - tx, oy - ty).
+
+    Candidates: tx in the block's clamped window with tx - ox - d_lo a
+    multiple of ``stride`` (a global grid), ty in the window with ty - ylo
+    a multiple of ``stride`` (anchored at the clamped window).  The minimum
+    is taken in two stages, as the JAX program reduces: over ty first by
+    (inner, ty), inner = f32(partial) * 2^-4 + cy, then over tx by
+    (inner + cx, tx).  A block with no candidate gets the zero vector."""
+    dev = _check(cur, ref, block, search, "ssd")
+    if stride not in (1, 2):
+        raise ValueError(f"candidate stride {stride}")
+    h, w = cur.shape
+    hb, wb = h // block, w // block
+    d_lo, _cost2, axis, _lut = tables(block, search)
+    ds = d_lo + np.arange(axis.shape[0])
+    ox = np.arange(wb) * block
+    oy = np.arange(hb) * block
+    xlo, xhi = search_bounds(ox, block, search, w)
+    ylo, yhi = search_bounds(oy, block, search, h)
+    tx = ox[None, :] + ds[:, None]
+    ty = oy[None, :] + ds[:, None]
+    okx = torch.from_numpy((tx >= xlo) & (tx < xhi)
+                           & ((ds[:, None] - d_lo) % stride == 0)).to(dev)
+    oky = torch.from_numpy((ty >= ylo) & (ty < yhi)
+                           & ((ty - ylo) % stride == 0)).to(dev)
+    c = cur[:hb * block, :wb * block].to(torch.int32)
+    pad = search
+    refp = torch.nn.functional.pad(ref.to(torch.int32), (pad, pad, pad, pad))
+    scale = torch.tensor(_SSD_SCALE, device=dev)
+    inf = float("inf")
+    best = torch.full((hb, wb), inf, dtype=torch.float32, device=dev)
+    best_dx = torch.zeros((hb, wb), dtype=torch.int64, device=dev)
+    best_dy = torch.zeros((hb, wb), dtype=torch.int64, device=dev)
+
+    def block_sum(x):
+        return x.reshape(hb, block, wb, block).sum(dim=(1, 3))
+
+    rows = [j for j in range(len(ds)) if bool(oky[j].any())]
+    for i, dx in enumerate(ds.tolist()):
+        if not bool(okx[i].any()):
+            continue
+        r_cols = refp[:, pad + dx:pad + dx + wb * block]
+        m1 = torch.full((hb, wb), inf, dtype=torch.float32, device=dev)
+        j1 = torch.zeros((hb, wb), dtype=torch.int64, device=dev)
+        for j in rows:
+            r = r_cols[pad + ds[j]:pad + ds[j] + hb * block]
+            partial = block_sum(r * r) - 2 * block_sum(c * r)
+            inner = partial.to(torch.float32) * scale + float(axis[j])
+            better = oky[j][:, None] & (inner < m1)
+            m1 = torch.where(better, inner, m1)
+            j1 = torch.where(better, int(ds[j]), j1)
+        score = m1 + float(axis[i])
+        better = okx[i][None, :] & (score < best)
+        best = torch.where(better, score, best)
+        best_dx = torch.where(better, dx, best_dx)
+        best_dy = torch.where(better, j1, best_dy)
+    return torch.stack([-best_dx, -best_dy], dim=-1).to(torch.int32)
+
+
+@lru_cache(maxsize=16)
+def pyramid_mv_u8(search: int) -> np.ndarray:
+    """The u8 channel of a clamped vector component m at m + max_mv, in
+    float32 as the JAX package's ``_mv_rgba`` computes the pyramid's map.
+    It differs from ``tables``' float64 one (the oracles') for some
+    searches, 60 among them."""
+    max_mv = search // 2
+    m = np.arange(-max_mv, max_mv + 1).astype(np.float32)
+    n = m / np.float32(max_mv) * np.float32(0.5) + np.float32(0.5)
+    return np.clip(np.rint(n * np.float32(255.0)), 0, 255).astype(np.uint8)
+
+
+def refine_torch(cur: torch.Tensor, ref: torch.Tensor, raw: torch.Tensor,
+                 block: int = 16, search: int = 64, refine: int = 2,
+                 metric: str = "ssd") -> torch.Tensor:
+    """The pyramid's refine stage (the JAX package's ``_me_refine_program``)
+    as torch ops on the frames' device: each block's ``(2 refine + 1)^2``
+    candidates around its coarse vector ``raw[by, bx]`` = (mvx, mvy), in a
+    ``win`` x ``win``
+    patch clamped into the frame, re-scored exactly with ``metric``; the
+    first minimum in tx-major order wins, candidates outside the block's
+    clamped window are left out, and a block with none gets the zero
+    vector.  Returns the RGBA MV map."""
+    dev = _check(cur, ref, block, search, metric)
+    h, w = cur.shape
+    hb, wb = h // block, w // block
+    win = block + 2 * refine
+    d_lo, cost2, axis, _lut = tables(block, search)
+    n_d = axis.shape[0]
+    axis, cost2 = (torch.from_numpy(t).to(dev) for t in (axis, cost2))
+    mv_u8 = torch.from_numpy(pyramid_mv_u8(search)).to(dev)
+    n_off = 2 * refine + 1
+    offs = torch.tensor([(ddx, ddy) for ddx in range(n_off)
+                         for ddy in range(n_off)], device=dev)
+    oy_np = np.arange(hb) * block
+    ox_np = np.arange(wb) * block
+    xlo, xhi = (torch.from_numpy(t).to(dev)[None, :, None] for t in
+                search_bounds(ox_np, block, search, w))
+    ylo, yhi = (torch.from_numpy(t).to(dev)[:, None, None] for t in
+                search_bounds(oy_np, block, search, h))
+    oy = torch.from_numpy(oy_np).to(dev)[:, None]
+    ox = torch.from_numpy(ox_np).to(dev)[None, :]
+    raw = raw.to(torch.int64)
+    gy0 = torch.clamp(oy - raw[..., 1] - refine, 0, h - win)
+    gx0 = torch.clamp(ox - raw[..., 0] - refine, 0, w - win)
+    iw = torch.arange(win, device=dev)
+    patch = ref[(gy0[..., None] + iw)[..., :, None],
+                (gx0[..., None] + iw)[..., None, :]].to(torch.int32)
+    cb = (cur[:hb * block, :wb * block].to(torch.int32)
+          .reshape(hb, block, wb, block).permute(0, 2, 1, 3))
+    ty = gy0[..., None] + offs[:, 1]                     # [hb, wb, n_s]
+    tx = gx0[..., None] + offs[:, 0]
+    valid = (ty >= ylo) & (ty < yhi) & (tx >= xlo) & (tx < xhi)
+    dyi = oy[..., None] - ty
+    dxi = ox[..., None] - tx
+    # cost-table indices of d = t - o (every candidate that counts lies in
+    # the block's window, so in the tables' range)
+    iy = torch.clamp(-dyi - d_lo, 0, n_d - 1)
+    ix = torch.clamp(-dxi - d_lo, 0, n_d - 1)
+    terms = []
+    for ddx, ddy in offs.tolist():
+        rb = patch[:, :, ddy:ddy + block, ddx:ddx + block]
+        if metric == "ssd":
+            terms.append((rb * rb).sum(dim=(2, 3))
+                         - 2 * (cb * rb).sum(dim=(2, 3)))
+        else:
+            terms.append((cb - rb).abs().sum(dim=(2, 3)))
+    term = torch.stack(terms, dim=-1).to(torch.float32)
+    if metric == "ssd":
+        score = (term * torch.tensor(_SSD_SCALE, device=dev)
+                 + axis[iy]) + axis[ix]
+    else:
+        score = cost2[ix, iy] + term * torch.tensor(_SAD_SCALE, device=dev)
+    score = torch.where(valid, score, float("inf"))
+    # the first minimum in tx-major order
+    m = score.min(dim=-1).values
+    km = torch.where(score == m[..., None],
+                     torch.arange(score.shape[-1], device=dev),
+                     score.shape[-1]).min(dim=-1).values
+    ok = torch.isfinite(m)
+    max_mv = search // 2
+    out = []
+    for d in (dxi, dyi):
+        mv = torch.where(ok, d.gather(-1, km[..., None])[..., 0], 0)
+        out.append(mv_u8[torch.clamp(mv, -max_mv, max_mv) + max_mv])
+    # G = rint(0.5 * 255) = 128 (half to even), A = 255
+    return torch.stack([out[0], torch.full_like(out[0], 128), out[1],
+                        torch.full_like(out[0], 255)], dim=-1)
+
+
+def pyramid_falls_back(h: int, w: int, block: int, search: int,
+                       refine: int) -> bool:
+    """Geometries the two-stage search cannot express (the JAX package's
+    condition): they take the exhaustive search."""
+    return bool(h % 2 or w % 2 or block % 2 or search % 2 or block < 8
+                or search <= block or w % block or h < block + 2 * refine
+                or w < block + 2 * refine)
+
+
+def me_fullsearch_pyramid_torch(cur: torch.Tensor, ref: torch.Tensor,
+                                block: int = 16, search: int = 64,
+                                refine: int = 2,
+                                metric: str = "ssd") -> torch.Tensor:
+    """Plain version of ``me_fullsearch_pyramid``."""
+    h, w = cur.shape
+    if pyramid_falls_back(h, w, block, search, refine):
+        return me_fullsearch_torch(cur, ref, block, search, metric)
+    raw = me_coarse_torch(cur, ref, block, search, coarse_stride(w, block))
+    return refine_torch(cur, ref, raw, block, search, refine, metric)
+
+
 def me_fullsearch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
                   search: int = 64, metric: str = "sad") -> torch.Tensor:
     """Full search of ``cur`` against ``ref`` ([H, W] u8 luma tensors on one
     device): [H // block, W // block, 4] u8 RGBA MV map on that device.
     The kernel on a CUDA device, the plain version on the CPU."""
     global launches
-    dev = _check(cur, ref, block, search, metric)
-    if dev.type == "cpu":
+    if not _on_card(cur, ref, block, search, metric):
         return me_fullsearch_torch(cur, ref, block, search, metric)
-    if dev.type != "cuda":
-        raise ValueError(f"motion search runs on cuda, not {dev}")
-    if block != KERNEL_BLOCK:
-        raise ValueError(f"the motion kernel takes {KERNEL_BLOCK}x"
-                         f"{KERNEL_BLOCK} blocks, not {block}")
-    if not (cur.is_contiguous() and ref.is_contiguous()):
-        raise ValueError("frames must be contiguous")
+    _check_kernel_frames(cur, ref, block)
+    dev = cur.device
     h, w = cur.shape
     out = torch.empty((h // block, w // block, 4), dtype=torch.uint8,
                       device=dev)
@@ -381,3 +592,102 @@ def me_fullsearch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
     launches += 1
     route_launches[KERNELS[metric]] += 1
     return out
+
+
+def me_coarse(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
+              search: int = 64, stride: int = 2) -> torch.Tensor:
+    """The pyramid's coarse stage: [H // block, W // block, 2] int32 raw
+    vectors (mvx, mvy) on the frames' device.  The SSD kernel's coarse mode
+    on a CUDA device (one launch), ``me_coarse_torch`` on the CPU."""
+    global launches
+    if stride not in (1, 2):
+        raise ValueError(f"candidate stride {stride}")
+    if not _on_card(cur, ref, block, search, "ssd"):
+        return me_coarse_torch(cur, ref, block, search, stride)
+    _check_kernel_frames(cur, ref, block)
+    dev = cur.device
+    h, w = cur.shape
+    raw = torch.empty((h // block, w // block, 2), dtype=torch.int32,
+                      device=dev)
+    if raw.numel() == 0:
+        return raw
+    lib = build()
+    fn = lib.sv_motion_coarse
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, I, I, I, I, P, P, I, P, P, P]
+        fn.restype = I
+    axis, _lut = _device_tables(block, search, "ssd", dev)
+    pl, gr = _device_plan(h, w, search, GROUP["ssd"], dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cur.data_ptr(), ref.data_ptr(), h, w, search, stride,
+                 pl.data_ptr(), gr.data_ptr(), gr.shape[0], axis.data_ptr(),
+                 raw.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{COARSE_KERNEL} launch failed: CUDA error {err}")
+    launches += 1
+    route_launches[COARSE_KERNEL] += 1
+    return raw
+
+
+@lru_cache(maxsize=16)
+def _device_mv_u8(search: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(pyramid_mv_u8(search)).to(device)
+
+
+def me_refine(cur: torch.Tensor, ref: torch.Tensor, raw: torch.Tensor,
+              block: int = 16, search: int = 64, refine: int = 2,
+              metric: str = "ssd") -> torch.Tensor:
+    """The pyramid's refine stage around ``raw`` ([H // block, W // block,
+    2] coarse vectors on the frames' device): the RGBA MV map.  The refine
+    kernel on a CUDA device (one launch), ``refine_torch`` on the CPU."""
+    global launches
+    if not _on_card(cur, ref, block, search, metric):
+        return refine_torch(cur, ref, raw, block, search, refine, metric)
+    _check_kernel_frames(cur, ref, block)
+    dev = cur.device
+    h, w = cur.shape
+    out = torch.empty((h // block, w // block, 4), dtype=torch.uint8,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build()
+    fn = lib.sv_motion_refine
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, I, I, I, I, I, P, I, P, I, P, P, P, P]
+        fn.restype = I
+    cost, _lut = _device_tables(block, search, metric, dev)
+    lut = _device_mv_u8(search, dev)
+    pl, _gr = _device_plan(h, w, search, GROUP["ssd"], dev)
+    n_d = tables(block, search)[2].shape[0]
+    raw = raw.to(torch.int32).contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cur.data_ptr(), ref.data_ptr(), h, w, search, refine,
+                 METRICS.index(metric), pl.data_ptr(), pl.shape[0],
+                 raw.data_ptr(), n_d, cost.data_ptr(), lut.data_ptr(),
+                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{REFINE_KERNEL} launch failed: CUDA error {err}")
+    launches += 1
+    route_launches[REFINE_KERNEL] += 1
+    return out
+
+
+def me_fullsearch_pyramid(cur: torch.Tensor, ref: torch.Tensor,
+                          block: int = 16, search: int = 64, refine: int = 2,
+                          metric: str = "ssd") -> torch.Tensor:
+    """Two-stage motion search (the JAX package's ``me_fullsearch_pyramid``):
+    the coarse SSD stage on the stride-2 grid (stride 1 when no group size
+    divides the block columns), then the exact refine with ``metric``.
+    Geometries it cannot express take ``me_fullsearch``.  On a CUDA device
+    the coarse stage and the refine are one kernel launch each, the
+    fallback one launch of K4 or K5; on the CPU, the plain versions.
+    Returns the [H // block, W // block, 4] u8 RGBA MV map."""
+    h, w = cur.shape
+    if pyramid_falls_back(h, w, block, search, refine):
+        return me_fullsearch(cur, ref, block, search, metric)
+    raw = me_coarse(cur, ref, block, search, coarse_stride(w, block))
+    return me_refine(cur, ref, raw, block, search, refine, metric)

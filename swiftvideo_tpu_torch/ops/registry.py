@@ -9,8 +9,9 @@ explicit ``torch.device``, the card unless the caller asks for the CPU: on
 ``cuda`` a composite onto a y420p / nv12 / nv21 / RGBA / BGRA target runs
 the frame kernel (ops/frame.py), a y422p / y444p target the plain torch
 version (ops/composite.py); on ``cpu`` everything runs the plain version.
-``me_fullsearch`` / ``me_fullsearch_ssd`` run the motion search
-(ops/motion.py); ``me_fullsearch_pyramid`` is not yet ported.  ``custom``
+``me_fullsearch`` / ``me_fullsearch_ssd`` run the motion search and
+``me_fullsearch_pyramid`` the two-stage search with its defaults
+(ops/motion.py).  ``custom``
 kernels are user-registered callables (compute.swift .custom case).
 """
 
@@ -139,10 +140,13 @@ def composite_frame(ctx: ComputeContext, out_fmt: PixelFormat, size,
                     sources, target=None):
     """Fold ``sources`` onto a cleared (or the given) ``out_fmt`` frame on
     the context's device: the frame kernel where it writes the target
-    format on the card, the plain version everywhere else."""
+    format on the card, the plain version everywhere else.  Packed 4:2:2
+    (yuvs / zvuy) sources reach the kernel unpacked to y422p; a packed
+    target folds as y422p with the plain version and is packed again."""
     if ctx.kind == "cuda" and out_fmt in frame.KERNEL_TARGETS:
-        return frame.composite_frame_cuda(size, sources, out_fmt,
-                                          device=ctx.device, target=target)
+        return frame.composite_frame_cuda(
+            size, composite.unpack_sources(sources), out_fmt,
+            device=ctx.device, target=target)
     return composite.composite_stack_torch(out_fmt, size, sources, ctx.device,
                                            target=target)
 
@@ -169,9 +173,6 @@ def run_compute_kernel(ctx: ComputeContext, images, target: PictureSample,
         planes = composite.clear_planes(target.pixel_format(), target.size(),
                                         ctx.device)
         return target.with_(img=target.img.with_buffers(planes))
-    if name == "me_fullsearch_pyramid":
-        raise ComputeError(f"{name}: the two-stage motion search is not yet "
-                           "ported")
     if name in _MOTION:
         # images = [current, reference] luma samples; an RGBA MV map at
         # block resolution comes back (kernels.metal:206-267)
@@ -179,8 +180,11 @@ def run_compute_kernel(ctx: ComputeContext, images, target: PictureSample,
             raise ComputeError("badInputData")
         cur, ref = to_device([images[0].planes()[0], images[1].planes()[0]],
                              ctx.device)
-        mv = motion.me_fullsearch(
-            cur, ref, metric="ssd" if name.endswith("_ssd") else "sad")
+        if name == "me_fullsearch_pyramid":
+            mv = motion.me_fullsearch_pyramid(cur, ref)
+        else:
+            mv = motion.me_fullsearch(
+                cur, ref, metric="ssd" if name.endswith("_ssd") else "sad")
         h, w = mv.shape[:2]
         img = ImageBuffer(pixel_format=PixelFormat.RGBA,
                           buffer_type=(BufferType.gpu if ctx.kind == "cuda"

@@ -179,21 +179,30 @@ def test_port_composer_matches_jax_composer(device_fold):
 
 
 def test_media_commands_need_an_action():
-    """Load/SetText built-ins reach the codec layer, which is not yet
-    ported, so the port raises unless an action claims the command."""
+    """An action still claims a media command first.  Without one the
+    built-in handler runs (it raised while the codec layer was not ported):
+    SetText renders the text and publishes it under the asset id."""
     from concurrent.futures import Future
 
     from swiftvideo_tpu_torch.scene import ComposerCommand, SetTextCommand
     clock = port_core.StepClock(port_core.TimePoint(480, 48000))
+    pictures = port_core.Bus(clock)
     composer = Composer(clock, workspace_id="w",
                         composition=_composition(PORT_NS),
                         audio_bus=port_core.Bus(clock),
-                        picture_bus=port_core.Bus(clock),
+                        picture_bus=pictures,
                         compute_context=make_compute_context("cpu"))
+    published = []
+    keep = pictures.subscribe(port_core.Tx(
+        lambda s: (published.append(s), port_core.EventBox.nothing(None))[1]))
     cmd = ComposerCommand(set_text=SetTextCommand(asset_id="t", value="hi"))
-    with pytest.raises(ComposerError, match="not yet ported"):
-        composer.run_command(cmd)
     claimed: Future = Future()
     claimed.set_result(True)
     assert composer.run_command(cmd, action=lambda c: claimed).result(1)
+    assert published == []
+    assert composer.run_command(cmd).result(1)
+    (text,) = [s for s in published if s.asset_id() == "t"]
+    assert text.pixel_format() is port_media.PixelFormat.RGBA
+    assert int(np.asarray(text.planes()[0])[..., 3].max()) > 0
+    del keep
     composer.close()

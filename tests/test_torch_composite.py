@@ -250,8 +250,13 @@ def test_run_compute_kernel_matches_jax_registry():
         ctx, [], port_target, registry.ComputeKernel.clear(PortPF.nv12))
     assert int(cleared.planes()[0].max()) == 0
     assert set(np.unique(cleared.planes()[1].numpy())) == {128}
-    with pytest.raises(registry.ComputeError, match="not yet ported"):
-        registry.run_compute_kernel(
-            ctx, [port_image, port_image], port_target,
-            registry.default_compute_kernel_from_string(
-                "me_fullsearch_pyramid"))
+    # the two-stage motion search runs in both registries, to one map
+    pyramid = "me_fullsearch_pyramid"
+    mv = registry.run_compute_kernel(
+        ctx, [port_image, port_image], port_target,
+        registry.default_compute_kernel_from_string(pyramid))
+    jax_mv = jax_registry.run_compute_kernel(
+        jax_context("golden"), [image, image], target,
+        jax_registry.default_compute_kernel_from_string(pyramid))
+    assert np.array_equal(mv.planes()[0].numpy(),
+                          np.asarray(jax_mv.planes()[0]))

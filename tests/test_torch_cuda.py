@@ -1,7 +1,8 @@
 """The port's kernels on an NVIDIA card: the frame kernel (yuv and RGBA /
 BGRA targets) and the motion search (SAD and SSD) against their plain torch
-versions on the same CUDA tensors, and the audio folds against the host
-loop; the batch paths: the ladder's products (<= 1 LSB against the plain
+versions on the same CUDA tensors, the two-stage motion search (K5's
+coarse mode and the refine kernel) against its plain version, and the audio
+folds against the host loop; the batch paths: the ladder's products (<= 1 LSB against the plain
 composite, and raising under the TF32 switches), the batched fold (exact),
 the device resampler (< 1e-4 against the host route) and the SRC stage's
 bookkeeping, and the mixing wall's plan path (<= 1 LSB) and per-cell path
@@ -246,6 +247,36 @@ def test_motion_kernel_matches_plain_on_card(card, geom, metric):
 def test_motion_kernel_ties_match_plain_on_card(card, kind, metric):
     cur, ref = _tie_frames(kind, 272, 480, card)
     _kernel_equals_plain(cur, ref, 64, metric)
+
+
+@pytest.mark.parametrize("metric", motion.METRICS)
+@pytest.mark.parametrize("geom", [(96, 128, 64), (144, 192, 62), (96, 112, 64),
+                                  (80, 96, 30), (1080, 1920, 64),
+                                  (2160, 3840, 64)],
+                         ids=lambda g: "x".join(map(str, g)))
+def test_pyramid_kernels_match_plain_on_card(card, geom, metric):
+    """The two-stage search: K5's coarse mode at both strides against
+    ``me_coarse_torch`` (search 62 puts the dx grid on odd tx at the left
+    edge; 112 columns take the stride-1 grid), the refine kernel against
+    ``refine_torch`` around the same coarse vectors, and the whole pyramid
+    against its plain version in exactly two launches."""
+    h, w, search = geom
+    cur, ref = _frames(np.random.default_rng(h * w + search), h, w, card)
+    for stride in (1, 2):
+        assert torch.equal(motion.me_coarse(cur, ref, 16, search, stride),
+                           motion.me_coarse_torch(cur, ref, 16, search, stride))
+    for refine in (1, 2):
+        raw = motion.me_coarse(cur, ref, 16, search, motion.coarse_stride(w))
+        assert torch.equal(
+            motion.me_refine(cur, ref, raw, 16, search, refine, metric),
+            motion.refine_torch(cur, ref, raw, 16, search, refine, metric))
+    before = dict(motion.route_launches)
+    got = motion.me_fullsearch_pyramid(cur, ref, 16, search, 2, metric)
+    assert {k: n - before[k] for k, n in motion.route_launches.items()
+            if n != before[k]} == {motion.COARSE_KERNEL: 1,
+                                   motion.REFINE_KERNEL: 1}
+    assert torch.equal(got, motion.me_fullsearch_pyramid_torch(
+        cur, ref, 16, search, 2, metric))
 
 
 @pytest.mark.parametrize("metric", motion.METRICS)

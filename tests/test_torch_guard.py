@@ -22,8 +22,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _ONE_TICK = r"""
 import json, sys
+# the card's machine has neither: the codec layer must import without them
+sys.modules["PIL"] = None
+sys.modules["cv2"] = None
 import numpy as np
 import swiftvideo_tpu_torch
+import swiftvideo_tpu_torch.codec
+import swiftvideo_tpu_torch.codec.avformat
+import swiftvideo_tpu_torch.mix.segmenter
 import swiftvideo_tpu_torch.interop
 import swiftvideo_tpu_torch.ops.matscale
 import swiftvideo_tpu_torch.parallel
@@ -51,7 +57,9 @@ src.planes()[0][:] = 200
 pictures.append(EventBox.just(src))
 clock.step()
 composer.close()
-print(json.dumps({"frames": len(frames),
+codec = sorted(m for m in sys.modules
+               if m.startswith("swiftvideo_tpu_torch.codec."))
+print(json.dumps({"frames": len(frames), "codec": codec,
                   "y": int(frames[-1].planes()[0][9, 16]),
                   "jax": any(m == "jax" or m.startswith("jax.")
                              for m in sys.modules),
@@ -99,7 +107,22 @@ def test_scan_covers_the_batch_paths():
             "swiftvideo_tpu_torch/parallel/wall.py"} <= names
 
 
+_CODEC = ("avformat", "bitstream", "codecs", "containers",
+          "ffmpeg_subprocess", "file_source", "libav", "text", "transcode")
+
+
+def test_scan_covers_the_codec_layer():
+    """The scan reaches the codec layer and the segmenter."""
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {f"swiftvideo_tpu_torch/codec/{m}.py"
+            for m in ("__init__",) + _CODEC} <= names
+    assert "swiftvideo_tpu_torch/mix/segmenter.py" in names
+
+
 def test_port_never_imports_jax_or_triton():
+    """One Composer tick in a fresh process that also imports the codec
+    layer and the segmenter with PIL and cv2 unimportable: no JAX, triton
+    or JAX-package module is loaded."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _ONE_TICK], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -107,6 +130,8 @@ def test_port_never_imports_jax_or_triton():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["frames"] == 1 and abs(out["y"] - 200) <= 1
+    assert {f"swiftvideo_tpu_torch.codec.{m}" for m in _CODEC} <= \
+        set(out["codec"])
     assert out["jax"] is False
     assert out["triton"] is False
     assert out["jax_package"] == []

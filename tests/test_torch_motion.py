@@ -141,17 +141,26 @@ def test_registry_route_matches_jax_registry(name):
 
 
 def test_registry_refuses_the_pyramid_and_a_missing_reference():
-    pic = interop.picture_sample(create_picture_sample(
-        (64, 64), JaxPF.y420p, asset_id="cam", workspace_id="w"))
+    """Without a reference frame both searches raise; with one the pyramid
+    runs (it raised before it was ported) and equals the JAX registry's."""
+    jax_pic = create_picture_sample((64, 64), JaxPF.y420p, asset_id="cam",
+                                    workspace_id="w")
+    pic = interop.picture_sample(jax_pic)
     ctx = registry.make_compute_context("cpu")
-    with pytest.raises(registry.ComputeError, match="not yet ported"):
-        registry.run_compute_kernel(
-            ctx, [pic, pic], pic,
-            registry.default_compute_kernel_from_string("me_fullsearch_pyramid"))
-    with pytest.raises(registry.ComputeError, match="badInputData"):
-        registry.run_compute_kernel(
-            ctx, [pic], pic,
-            registry.default_compute_kernel_from_string("me_fullsearch"))
+    for name in ("me_fullsearch_pyramid", "me_fullsearch"):
+        with pytest.raises(registry.ComputeError, match="badInputData"):
+            registry.run_compute_kernel(
+                ctx, [pic], pic,
+                registry.default_compute_kernel_from_string(name))
+    ours = registry.run_compute_kernel(
+        ctx, [pic, pic], pic,
+        registry.default_compute_kernel_from_string("me_fullsearch_pyramid"))
+    theirs = jax_registry.run_compute_kernel(
+        jax_context("golden"), [jax_pic, jax_pic], jax_pic,
+        jax_registry.default_compute_kernel_from_string(
+            "me_fullsearch_pyramid"))
+    assert np.array_equal(ours.planes()[0].numpy(),
+                          np.asarray(theirs.planes()[0]))
 
 
 _U8 = torch.zeros(64, 64, dtype=torch.uint8)
