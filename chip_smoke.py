@@ -51,7 +51,20 @@ started together) and drives the port's paths at full size:
   SRC on the device route, segmented to 1024 samples), the Composer with an
   RGBA lower third on the card, and the uncompressed encoder; decoded again,
   the program must equal the same graph run on the CPU.  The codec
-  backends found on the machine are printed first.
+  backends found on the machine are printed first;
+* the CLI and the network layer (phases 20-23): ``mix`` of a 1080p30
+  manifest (a full-canvas background and four 960x540 quadrants at
+  transparency 0.1) through ``cli.main`` and as ``python -m
+  swiftvideo_tpu_torch mix``, one K1 launch a tick and one K3 launch a PNG,
+  its PNGs byte-identical between the two and equal to the same command
+  under ``SV_DEVICE=cpu``; 64 RTMP publishers into the port's server, whose
+  sessions seed the 64 1080p streams of the wall (per-cell tick: 64 K1
+  launches, each tile equal to its session's stream); ``serve --record``
+  as a child (one worker, then two) taking 16 publishers of 5 s of 1080p30
+  AVC at ~6 Mbit/s and AAC at ~128 kbit/s, every recorded file byte for
+  byte what its publisher sent; and four of those streams through a flavor
+  push, back byte-identical.  ``serve`` is host-only and runs in a child,
+  so nothing forks this process after CUDA is initialised.
 
 Every kernel comparison is exact: the frame kernels are bit-exact against
 the plain version, so one differing pixel fails the run; the float32
@@ -1136,6 +1149,710 @@ def station_phase(dev, rng, smi):
           f"{float(mid.mean()):.2f} | {smi}", flush=True)
 
 
+# --- phases 20-23: the CLI and the network layer ------------------------------
+# phase 20: `mix` of a 1080p30 manifest (a full-canvas background and four
+# 960x540 quadrants at transparency 0.1); phase 21: 64 RTMP publishers into
+# the wall (config 5's host shape); phase 22: `serve --record` with 16
+# publishers of 1080p30 AVC at ~6 Mbit/s (25 KB frames, a 150 KB keyframe
+# every 60) and 1024-sample AAC at ~128 kbit/s; phase 23: four of those
+# streams through a flavor push
+MIX_FRAMES, MIX_EVERY = 30, 10
+INGEST_PUBLISHERS, INGEST_SECONDS, INGEST_FPS = 16, 5, 30
+INGEST_SIZE = (1920, 1080)
+AU_BYTES, KEY_BYTES, GOP = 25_000, 150_000, 60
+AAC_BYTES, AAC_SAMPLES, AAC_RATE = 341, 1024, 48000
+FLAVOR_STREAMS = 4
+
+
+def cli_env(cpu: bool) -> dict:
+    """The environment of a ``python -m swiftvideo_tpu_torch`` child: the
+    checkout on its path, the CPU routes only when asked for."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    env.pop("SV_DEVICE", None)
+    if cpu:
+        env["SV_DEVICE"] = "cpu"
+    return env
+
+
+def read_png(path) -> np.ndarray:
+    """The (h, w, 4) RGBA pixels of a PNG that ``cli.write_png`` wrote
+    (colour type 6, 8 bits, filter 0 on every row)."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack_from(">I4s", data, pos)
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack_from(">IIBB", body)
+            if (depth, ctype) != (8, 6):
+                fail(f"{path}: PNG depth {depth}, colour type {ctype}")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(bytearray(zlib.decompress(idat)), np.uint8).reshape(
+        h, 1 + 4 * w)
+    if rows[:, 0].any():
+        fail(f"{path}: a PNG row has a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+def mix_manifest(path) -> None:
+    from swiftvideo_tpu_torch.compose import composition_to_json
+    from swiftvideo_tpu_torch.core import TimePoint
+    from swiftvideo_tpu_torch.scene import (Composition, Element,
+                                            ElementState, Scene)
+    # pic_origin is top-left by default: pic_pos is each quadrant's corner
+    quads = tuple(Element(name=f"cam{s}", z_index=s + 1,
+                          initial_state=ElementState(
+                              pic_pos=((s % 2) * W / 2, (s // 2) * H / 2),
+                              size=(W / 2, H / 2), transparency=0.1))
+                  for s in range(4))
+    comp = Composition(
+        name="mix", canvas_size=(W, H), frame_duration=TimePoint(1000, 30000),
+        audio_frame_duration=TimePoint(480, 48000),
+        scenes=(Scene(name="main", elements=(Element(
+            name="background", initial_state=ElementState(
+                size=(float(W), float(H)))),) + quads),),
+        initial_scene="main")
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write(composition_to_json(comp))
+
+
+def mix_phase(dev, smi, work):
+    """Phase 20: ``mix`` at 1920x1080 through ``cli.main`` in this process,
+    then as ``python -m swiftvideo_tpu_torch mix`` on the card and under
+    ``SV_DEVICE=cpu``.  Returns the K1 and K3 rows of the kernels line."""
+    import contextlib
+    import io
+    import os
+    from swiftvideo_tpu_torch import cli
+    from swiftvideo_tpu_torch.media import PixelFormat
+    from swiftvideo_tpu_torch.mix import video_mixer
+    from swiftvideo_tpu_torch.ops import composite, frame
+    manifest = os.path.join(work, "mix.json")
+    mix_manifest(manifest)
+    argv = ["mix", manifest, "--frames", str(MIX_FRAMES), "--every",
+            str(MIX_EVERY), "--out"]
+    want_pngs = [f"frame_{i:05d}.png" for i in range(0, MIX_FRAMES, MIX_EVERY)]
+
+    def pngs(d):
+        return sorted(os.listdir(d)) if os.path.isdir(d) else []
+
+    # the in-process run: its ticks and its PNG writes timed apart
+    calls, png_s = [], [0.0]
+    mixer_composite, write_png, rgba_frame = (video_mixer.composite_frame,
+                                              cli.write_png, cli.rgba_frame)
+
+    def spy(ctx_, fmt, size, sources, target=None):
+        calls.append((ctx_, fmt, size, sources, target))
+        return mixer_composite(ctx_, fmt, size, sources, target)
+
+    def timed_png(path, rgba):
+        t = time.perf_counter()
+        write_png(path, rgba)
+        png_s[0] += time.perf_counter() - t
+
+    def timed_rgba(ctx_, sample):
+        t = time.perf_counter()
+        out = rgba_frame(ctx_, sample)
+        png_s[0] += time.perf_counter() - t
+        return out
+
+    video_mixer.composite_frame = spy
+    cli.write_png, cli.rgba_frame = timed_png, timed_rgba
+    out_in = os.path.join(work, "mix_in")
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    for kern in frame.kernel_launches:
+        frame.kernel_launches[kern] = 0
+    frame.launches = composite.calls = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(argv + [out_in])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = frame.kernel_launches[frame.YUV_KERNEL]
+    k3 = frame.kernel_launches[frame.RGBA_KERNEL]
+    plain_calls = composite.calls
+    video_mixer.composite_frame = mixer_composite
+    cli.write_png, cli.rgba_frame = write_png, rgba_frame
+    said = stdout.getvalue().strip()
+    want_said = f"mixed {MIX_FRAMES} frames, wrote {len(want_pngs)} PNGs"
+    if rc != 0 or want_said not in said or pngs(out_in) != want_pngs:
+        fail(f"mix in-process: rc {rc}, said {said!r}, PNGs {pngs(out_in)}")
+    if k1 != len(calls) or k1 != MIX_FRAMES or k3 != len(want_pngs) \
+            or plain_calls:
+        fail(f"mix in-process: {len(calls)} ticks composited, {k1} K1 "
+             f"launches, {k3} K3 launches for {len(want_pngs)} PNGs, "
+             f"{plain_calls} plain composites")
+    # the same command in two children, on the card and under SV_DEVICE=cpu
+    # (one after the other: two torch processes at once contend for cores)
+    runs, child_s = {}, {}
+    for name, cpu in (("card", False), ("cpu", True)):
+        out = os.path.join(work, f"mix_{name}")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "swiftvideo_tpu_torch", *argv, out],
+            env=cli_env(cpu), capture_output=True, text=True, timeout=300)
+        child_s[name] = time.perf_counter() - t
+        runs[name] = (out, proc)
+        if proc.returncode != 0 or pngs(out) != want_pngs \
+                or want_said not in proc.stdout:
+            fail(f"mix {name} child: rc {proc.returncode}, PNGs {pngs(out)}, "
+                 f"stdout {proc.stdout.strip()!r}, stderr "
+                 f"{proc.stderr.strip()[-2000:]!r}")
+    same_bytes = all(open(os.path.join(out_in, p), "rb").read()
+                     == open(os.path.join(runs["card"][0], p), "rb").read()
+                     for p in want_pngs)
+    png_err = max(max_err([torch.from_numpy(read_png(os.path.join(d, p)))
+                           for d in (out_in,)],
+                          [torch.from_numpy(read_png(os.path.join(
+                              runs["cpu"][0], p)))])[0] for p in want_pngs)
+    if not same_bytes or png_err > LSB:
+        fail(f"mix: child PNGs byte-identical {same_bytes}; against "
+             f"SV_DEVICE=cpu max abs err {png_err}")
+    # the last tick's composite and the last PNG's conversion, against their
+    # plain versions on the same inputs, then timed
+    ctx, fmt, size, sources, target = calls[-1]
+    got = mixer_composite(ctx, fmt, size, sources, target)
+    ref = composite.composite_stack_torch(fmt, size, sources, dev,
+                                          target=target)
+    k1_err, k1_above = max_err(got, ref)
+    from swiftvideo_tpu_torch.media import BufferType, create_picture_sample
+    sample = create_picture_sample(size, fmt, asset_id="mix",
+                                   workspace_id="cli")
+    sample = sample.with_(img=sample.img.with_buffers(got, BufferType.gpu))
+    rgba = torch.from_numpy(cli.rgba_frame(ctx, sample))
+    from swiftvideo_tpu_torch.ops import identity_uniforms
+    k3_srcs = [(got, fmt, identity_uniforms(size, size))]
+    rgba_ref = composite.composite_stack_torch(PixelFormat.RGBA, size,
+                                               k3_srcs, dev)
+    k3_err, k3_above = max_err([rgba], [rgba_ref[0].cpu()])
+    if k1_err > LSB or k1_above or k3_err > LSB or k3_above:
+        fail(f"mix: last tick K1 vs plain err {k1_err} ({k1_above} px), its "
+             f"RGBA K3 vs plain err {k3_err} ({k3_above} px)")
+
+    def k1_call():
+        return mixer_composite(ctx, fmt, size, sources, target)
+
+    def k3_call():
+        return frame.composite_frame_cuda(size, k3_srcs, PixelFormat.RGBA)
+
+    rows = []
+    for key, name, call, kern, srcs, ofmt, n, err in (
+            ("K1", "mix tick, 1080p, 5 y420p sources", k1_call,
+             frame.YUV_KERNEL, sources, fmt, k1, k1_err),
+            ("K3", "mix PNG, 1080p y420p -> RGBA", k3_call,
+             frame.RGBA_KERNEL, k3_srcs, PixelFormat.RGBA, k3, k3_err)):
+        bms, by = bound(frame_bytes(size, srcs, ofmt), 0, 1.0)
+        rows.append({"name": f"frame_composite ({key}: {name})",
+                     "route": "cuda",
+                     "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
+                     "replaces": REPLACES[key], "launches": n,
+                     "max_abs_err": err, "ms": timed_ms(call),
+                     "device_ms": device_ms(call, kern),
+                     "plain_ms": timed_ms(
+                         lambda s=srcs, f=ofmt: composite.composite_stack_torch(
+                             f, size, s, dev), reps=5, batch=2),
+                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+    print(f"[20 mix, the CLI] {MIX_FRAMES} frames of {W}x{H}, PNG every "
+          f"{MIX_EVERY}: in-process {wall:.3f} s = {MIX_FRAMES / wall:.2f} "
+          f"ticks/s for the whole command; host {(wall - png_s[0]) / MIX_FRAMES * 1e3:.2f} "
+          f"ms per tick without the PNGs; {len(want_pngs)} PNGs {png_s[0]:.3f} s "
+          f"(K3 + download + zlib, {png_s[0] / wall:.1%} of the command); K1 "
+          f"launches {k1} for {len(calls)} ticks, K3 launches {k3} for "
+          f"{len(want_pngs)} PNGs, 0 plain composites; `python -m "
+          f"swiftvideo_tpu_torch mix` PNGs byte-identical to in-process; "
+          f"against SV_DEVICE=cpu err {png_err} (children {child_s['card']:.1f}"
+          f" s on the card, {child_s['cpu']:.1f} s on the CPU) | K1 device "
+          f"{rows[0]['device_ms']:.4f} ms/launch (call {rows[0]['ms']:.4f}), "
+          f"K3 device {rows[1]['device_ms']:.4f} ms/launch (call "
+          f"{rows[1]['ms']:.4f}); last tick vs plain err {k1_err}, its RGBA "
+          f"{k3_err} | {smi}", flush=True)
+    return rows
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wall_ingest_phase(dev, smi):
+    """Phase 21: 64 RTMP publishers into the port's server; each session's
+    latest sample seeds a 1920x1080 stream made on the card; one per-cell
+    wall tick (64 K1 launches) and one plan tick.  Returns the kernels-line
+    row of the per-cell K1 launches."""
+    import asyncio
+    from swiftvideo_tpu_torch.core import EventBox, StepClock, TimePoint, Tx
+    from swiftvideo_tpu_torch.media.coded import (CodedMediaSample,
+                                                  MediaFormat, MediaType)
+    from swiftvideo_tpu_torch.net.rtmp import Rtmp, chunks
+    from swiftvideo_tpu_torch.ops import composite, frame
+    from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms
+    from swiftvideo_tpu_torch.media import PixelFormat
+    from swiftvideo_tpu_torch.parallel import MixingWall
+    n, port = WALL_STREAMS, free_port()
+
+    async def ingest():
+        clock = StepClock(TimePoint(16, 1000))
+        latest, keep = {}, []
+
+        async def on_connection(pub, sub):
+            if sub is not None:
+                keep.append(sub >> Tx(
+                    lambda s, name=sub.play_path(): (
+                        latest.__setitem__(name, s),
+                        EventBox.nothing(None))[1]))
+            return True
+
+        server = Rtmp(clock, on_connection=on_connection)
+        await server.serve("127.0.0.1", port)
+        pubs = []
+        for k in range(n):
+            pub, _ = await Rtmp(clock).connect(
+                f"rtmp://127.0.0.1:{port}/wall/cam{k}", publish_to_peer=True,
+                max_attempts=3, retry_delay=0.2)
+            pubs.append(pub)
+        for _ in range(14):          # the publishers' 200 ms metadata grace
+            clock.step()
+            await asyncio.sleep(0)
+        ts = TimePoint(0, 1000)
+        for _ in range(3):
+            for k, pub in enumerate(pubs):
+                body = bytearray(200)
+                body[4], body[5] = 0x65, 3 * k + 2
+                pub.apply(EventBox.just(CodedMediaSample(
+                    buffer=bytes(body), pts_value=ts, dts_value=ts,
+                    media_type=MediaType.video, media_format=MediaFormat.avc,
+                    id_asset=f"cam{k}", id_workspace="w",
+                    side={"config": bytes(48)})))
+            ts = ts + TimePoint(16, 1000)
+            clock.step()
+            await asyncio.sleep(0)
+        deadline = asyncio.get_running_loop().time() + 30.0
+        while len(latest) < n and asyncio.get_running_loop().time() < deadline:
+            await asyncio.sleep(0.001)
+        for pub in pubs:
+            pub.close()
+        await server.close()
+        return latest
+
+    t0 = time.perf_counter()
+    latest = asyncio.run(ingest())
+    accept_s = time.perf_counter() - t0
+    if sorted(latest) != sorted(f"cam{k}" for k in range(n)):
+        fail(f"wall ingest: {len(latest)} of {n} sessions arrived")
+    seeds = [latest[f"cam{k}"].data()[5] for k in range(n)]
+    if seeds != [3 * k + 2 for k in range(n)]:
+        fail(f"wall ingest: seeds {seeds} do not trace back to the sessions")
+    # each session's stream made on the card from its seed
+    planes = []
+    for seed in seeds:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        planes.append([torch.randint(0, 256, shape, dtype=torch.uint8,
+                                     device=dev, generator=gen)
+                       for shape in ((H, W), (H // 2, W // 2),
+                                     (H // 2, W // 2))])
+    ys, us, vs = (torch.stack([p[i] for p in planes]) for i in range(3))
+    pcm = np.stack([np.random.default_rng(s).integers(
+        -20000, 20000, 2 * WALL_SAMPLES, np.int64).astype(np.int16)
+        for s in seeds])
+    wall = MixingWall(n_streams=n, stream_size=(W, H), canvas_size=WALL_CANVAS,
+                      audio_samples=WALL_SAMPLES, device=dev)
+    tw, th = wall.tile
+    audio_t = wall.shard(pcm)
+    unis = wall.default_uniforms()
+    gains = wall.default_gains().cpu().numpy().astype(np.float64)
+    want_audio = np.clip(np.trunc((pcm.astype(np.float64)
+                                   * gains[:, None]).sum(0)), -32768, 32767)
+
+    def tick_cells():
+        return wall.step(ys, us, vs, audio_t, uniforms=unis)
+
+    def tick_plan():
+        return wall.step(ys, us, vs, audio_t)
+
+    torch.cuda.synchronize()
+    for kern in frame.kernel_launches:
+        frame.kernel_launches[kern] = 0
+    frame.launches = composite.calls = 0
+    cell_out = tick_cells()
+    torch.cuda.synchronize()
+    k1, cell_plain = frame.kernel_launches[frame.YUV_KERNEL], composite.calls
+    plan_out = tick_plan()
+    torch.cuda.synchronize()
+    if k1 != n or frame.launches != n or cell_plain or composite.calls:
+        fail(f"RTMP-fed wall: {k1} K1 launches (want {n}), {frame.launches} "
+             f"frame launches after the plan tick, {composite.calls} plain "
+             f"composites")
+    gw = wall.grid_wh[0]
+
+    def cell(out, s):
+        r, c = divmod(s, gw)
+        return [p[r * h:(r + 1) * h, c * w:(c + 1) * w] for p, (w, h) in zip(
+            out, ((tw, th), (tw // 2, th // 2), (tw // 2, th // 2)))]
+
+    cell_err = plan_vs_cell = 0
+    for s in range(n):
+        ref = composite.composite_stack_torch(
+            PixelFormat.y420p, (tw, th), [(planes[s], PixelFormat.y420p,
+                                           unis[s])], dev)
+        cell_err = max(cell_err, max_err(cell(cell_out, s), ref)[0])
+    plan_vs_cell = max_err(plan_out[:3], cell_out[:3])[0]
+    audio_ok = all(np.array_equal(o[3].cpu().numpy(), want_audio)
+                   for o in (cell_out, plan_out))
+    if cell_err > LSB or plan_vs_cell > 1 or not audio_ok:
+        fail(f"RTMP-fed wall: per-cell tiles vs their sessions' streams err "
+             f"{cell_err}, plan vs per-cell {plan_vs_cell}, audio exact "
+             f"{audio_ok}")
+    cell_ms = timed_ms(tick_cells, reps=3, batch=2, warmup=1)
+    cell_dev, cell_acts = device_total_ms(tick_cells, n=3)
+    cell_srcs = [(planes[1], PixelFormat.y420p, unis[1])]
+
+    def cell_call():
+        return frame.composite_frame_cuda((tw, th), cell_srcs)
+
+    cell_taps = tap_bytes([wall._plan], (H, W))
+    bms, by = bound(cell_taps + y420p_bytes(tw, th), 0, 1.0)
+    row = {"name": f"frame_composite (K1: RTMP-fed wall cell, {W}x{H} -> "
+                   f"{tw}x{th})",
+           "route": "cuda", "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
+           "replaces": REPLACES["K1"], "launches": k1, "max_abs_err": cell_err,
+           "ms": timed_ms(cell_call),
+           "device_ms": device_ms(cell_call, "frame_composite_kernel"),
+           "plain_ms": timed_ms(lambda: composite.composite_stack_torch(
+               PixelFormat.y420p, (tw, th), cell_srcs, dev), reps=5, batch=2),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    print(f"[21 RTMP ingest -> wall, config 5's host shape] {n} publishers "
+          f"into one port Rtmp server (dechunker native "
+          f"{chunks.native_available()}): sessions and their 3 samples each "
+          f"accepted in {accept_s:.3f} s; {n} streams {W}x{H} made on the card "
+          f"from the sessions' seeds; per-cell tick: {k1} K1 launches, every "
+          f"tile err {cell_err} vs the plain composite of its session's "
+          f"stream; plan tick within {plan_vs_cell} LSB of it; audio fold "
+          f"exact | per-cell tick call {cell_ms:.4f} ms, device {cell_dev:.4f} "
+          f"ms ({cell_acts:.0f} device activities); K1 cell device "
+          f"{row['device_ms']:.4f} ms | {smi}", flush=True)
+    return row
+
+
+def h264_sps_1080p() -> bytes:
+    """A Baseline H.264 SPS for 1920x1080 (120x68 macroblocks, 8 rows
+    cropped at the bottom), bit-packed as the standard lays it out."""
+    bits = []
+
+    def u(v, n):
+        bits.extend((v >> (n - 1 - i)) & 1 for i in range(n))
+
+    def ue(v):
+        v += 1
+        n = v.bit_length()
+        u(0, n - 1)
+        u(v, n)
+
+    u(66, 8), u(0xC0, 8), u(40, 8)       # profile, constraints, level 4.0
+    ue(0), ue(0), ue(2), ue(1), u(0, 1)  # sps id, frame_num, poc type 2, refs
+    ue(119), ue(67), u(1, 1), u(1, 1)    # 120x68 mbs, frame_mbs_only, 8x8
+    u(1, 1), ue(0), ue(0), ue(0), ue(4)  # cropping: bottom 4 x 2 rows
+    u(0, 1), u(1, 1)                     # no VUI, stop bit
+    bits.extend([0] * (-len(bits) % 8))
+    body = bytes(int("".join(map(str, bits[i:i + 8])), 2)
+                 for i in range(0, len(bits), 8))
+    return b"\x67" + body
+
+
+def ingest_streams(n_pub: int):
+    """n_pub publishers' samples (the port's CodedMediaSample), each stream
+    from its own seed: 1080p30 AVC in AVCC framing and AAC-LC 48 kHz
+    stereo, interleaved in pts order.  The pts are exact in flavor's track
+    time bases (1/600600 s for video, 1/96000 s for audio)."""
+    from swiftvideo_tpu_torch.codec import bitstream
+    from swiftvideo_tpu_torch.core import TimePoint
+    from swiftvideo_tpu_torch.media.coded import (CodedMediaSample,
+                                                  MediaFormat, MediaType)
+    sps, pps = h264_sps_1080p(), b"\x68\xce\x3c\x80"
+    if bitstream.h264_sps_frame_size(sps) != INGEST_SIZE:
+        fail(f"the 1080p SPS parses as {bitstream.h264_sps_frame_size(sps)}")
+    avcc = bytes([1, 66, 0xC0, 40, 0xFF, 0xE1]) + len(sps).to_bytes(2, "big") \
+        + sps + b"\x01" + len(pps).to_bytes(2, "big") + pps
+    asc = b"\x11\x90"                    # AAC-LC, 48 kHz, 2 channels
+    n_video = INGEST_SECONDS * INGEST_FPS
+    n_audio = INGEST_SECONDS * AAC_RATE // AAC_SAMPLES
+    streams = []
+    for k in range(n_pub):
+        rng = np.random.default_rng(22_000 + k)
+        out = []
+        for i in range(n_video):
+            key = i % GOP == 0
+            body = (b"\x65" if key else b"\x41") + rng.bytes(
+                (KEY_BYTES if key else AU_BYTES) - 5)
+            ts = TimePoint(i, INGEST_FPS)
+            out.append((i / INGEST_FPS, CodedMediaSample(
+                buffer=len(body).to_bytes(4, "big") + body, pts_value=ts,
+                dts_value=ts, media_type=MediaType.video,
+                media_format=MediaFormat.avc, id_asset=f"cam{k}",
+                id_workspace="live", side={"config": avcc})))
+        for j in range(n_audio):
+            ts = TimePoint(j * AAC_SAMPLES, AAC_RATE)
+            out.append((j * AAC_SAMPLES / AAC_RATE, CodedMediaSample(
+                buffer=rng.bytes(AAC_BYTES), pts_value=ts, dts_value=ts,
+                media_type=MediaType.audio, media_format=MediaFormat.aac,
+                id_asset=f"cam{k}", id_workspace="live",
+                side={"config": asc})))
+        out.sort(key=lambda t: (t[0], t[1].media_type.value))
+        streams.append([s for _, s in out])
+    return streams
+
+
+async def push_all(pubs, streams):
+    """Push every stream through its publisher as fast as the loop takes
+    them; a publisher whose socket is full is waited for, so that nothing
+    is dropped.  Returns the samples each publisher did not write."""
+    import asyncio
+    from swiftvideo_tpu_torch.core import EventBox
+    dropped = [0] * len(pubs)
+    for i in range(max(len(s) for s in streams)):
+        for k, (pub, stream) in enumerate(zip(pubs, streams)):
+            if i < len(stream):
+                while not pub.conn.writable:
+                    await asyncio.sleep(0.001)
+                if not pub.apply(EventBox.just(stream[i])).is_just():
+                    dropped[k] += 1
+        if i % 8 == 7:
+            await asyncio.sleep(0)
+    return dropped
+
+
+def serve_run(streams, work, workers):
+    """One ``python -m swiftvideo_tpu_torch serve --record`` child with
+    ``workers`` processes, every stream pushed into it over RTMP; stopped
+    (SIGINT to its process group) once every session has ended.  Returns
+    (record dir, stdout, wall s until every session ended, s until the
+    publishers had handed over their last sample, pids announced,
+    drops)."""
+    import asyncio
+    import os
+    import re
+    import signal
+    import threading
+    from swiftvideo_tpu_torch.core import WallClock
+    from swiftvideo_tpu_torch.net.rtmp import Rtmp
+    port, rec = free_port(), os.path.join(work, f"rec_{workers}")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "swiftvideo_tpu_torch", "serve", "--host",
+         "127.0.0.1", "--port", str(port), "--record", rec, "--max-seconds",
+         "120", "--workers", str(workers)],
+        env=cli_env(False), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True)
+    out, lock = [], threading.Lock()
+
+    def reader():
+        for line in iter(proc.stdout.readline, b""):
+            with lock:
+                out.append(line.decode())
+
+    thread = threading.Thread(target=reader, daemon=True)
+    thread.start()
+
+    def text():
+        with lock:
+            return "".join(out)
+
+    try:
+        deadline = time.time() + 60
+        while len(set(re.findall(r"pid (\d+)", text()))) < workers:
+            if proc.poll() is not None or time.time() > deadline:
+                fail(f"serve --workers {workers}: announced "
+                     f"{text()!r}, stderr {proc.stderr.read().decode()[-2000:]!r}")
+            time.sleep(0.05)
+
+        async def publish():
+            clock = WallClock()
+            pubs = []
+            for k in range(len(streams)):
+                pub, _ = await Rtmp(clock).connect(
+                    f"rtmp://127.0.0.1:{port}/live/cam{k}",
+                    publish_to_peer=True, max_attempts=3, retry_delay=0.2)
+                pubs.append(pub)
+            await asyncio.sleep(0.3)     # the 200 ms metadata grace timer
+            t = time.perf_counter()
+            dropped = await push_all(pubs, streams)
+            pushed = time.perf_counter() - t
+            for pub in pubs:
+                pub.close()
+            await asyncio.sleep(0)
+            return t, pushed, dropped
+
+        t0, pushed_s, dropped = asyncio.run(publish())
+        while text().count("ended:") < len(streams):
+            if proc.poll() is not None or time.time() > deadline + 120:
+                fail(f"serve --workers {workers}: {text().count('ended:')} "
+                     f"of {len(streams)} sessions ended")
+            time.sleep(0.005)
+        push_s = time.perf_counter() - t0
+        os.killpg(proc.pid, signal.SIGINT)
+        proc.wait(timeout=60)
+        thread.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return (rec, text(), push_s, pushed_s,
+            set(re.findall(r"pid (\d+)", text())), dropped)
+
+
+def serve_phase(smi, work):
+    """Phase 22: ``serve --record`` with 16 publishers of 5 s of 1080p30,
+    one worker and then two; every recorded file byte for byte the Annex-B
+    / ADTS form of what its publisher sent.  Returns the streams."""
+    import os
+    import re
+    from swiftvideo_tpu_torch.codec import bitstream
+    from swiftvideo_tpu_torch.codec.ffmpeg_subprocess import (
+        adts_header, avcc_to_annexb, sps_pps_from_avcdcr)
+    from swiftvideo_tpu_torch.media.coded import MediaType
+    from swiftvideo_tpu_torch.net.rtmp import chunks
+    t0 = time.perf_counter()
+    streams = ingest_streams(INGEST_PUBLISHERS)
+    make_s = time.perf_counter() - t0
+    want = {}
+    for k, stream in enumerate(streams):
+        video = [s for s in stream if s.media_type == MediaType.video]
+        audio = [s for s in stream if s.media_type == MediaType.audio]
+        sps, pps = sps_pps_from_avcdcr(video[0].side_data()["config"])
+        channels, rate, _ = bitstream.aac_parse_asc(
+            audio[0].side_data()["config"])
+        want[f"live_cam{k}.h264"] = b"".join(
+            b"\x00\x00\x00\x01" + p for p in sps + pps) + b"".join(
+            avcc_to_annexb(s.data()) for s in video)
+        want[f"live_cam{k}.adts"] = b"".join(
+            adts_header(rate, channels, len(s.data())) + s.data()
+            for s in audio)
+        want[f"live/cam{k}"] = (len(video), len(audio),
+                                sum(len(s.data()) for s in stream))
+    total = sum(v[2] for k, v in want.items() if "/" in k)
+    media_s = INGEST_PUBLISHERS * INGEST_SECONDS
+    parts = []
+    for workers in (1, 2):
+        rec, said, push_s, pushed_s, pids, dropped = serve_run(streams, work,
+                                                               workers)
+        if any(dropped):
+            fail(f"serve --workers {workers}: publishers dropped {dropped}")
+        files = sorted(os.listdir(rec))
+        bad = [f for f in files if "." in f and
+               open(os.path.join(rec, f), "rb").read() != want.get(f)]
+        if files != sorted(f for f in want if "." in f) or bad:
+            fail(f"serve --workers {workers}: recorded {files}, differing "
+                 f"{bad}")
+        counts = {m[0]: tuple(int(x) for x in m[1:]) for m in re.findall(
+            r"^(live/cam\d+): (\d+) video / (\d+) audio samples, (\d+) bytes",
+            said, re.M)}
+        # two workers share one stdout pipe, through which their buffered
+        # count lines may interleave: those are checked for one worker only
+        if len(pids) != workers or (workers == 1 and counts != {
+                k: v for k, v in want.items() if "/" in k}):
+            fail(f"serve --workers {workers}: pids {pids}, counts printed "
+                 f"{counts}")
+        parts.append(f"--workers {workers}: {len(pids)} worker(s) announced, "
+                     f"{len(files)} files byte-exact"
+                     + (", per-path counts match; " if workers == 1 else "; ") +
+                     f"{total / 1e6:.1f} MB in {push_s:.3f} s = "
+                     f"{total / 1e6 / push_s:.1f} MB/s, "
+                     f"{sum(len(s) for s in streams) / push_s:.0f} samples/s, "
+                     f"real-time factor {media_s / push_s:.2f} (the "
+                     f"publishers' loop handed over its last sample at "
+                     f"{pushed_s:.3f} s)")
+    print(f"[22 serve --record] {INGEST_PUBLISHERS} publishers x "
+          f"{INGEST_SECONDS} s of {INGEST_SIZE[0]}x{INGEST_SIZE[1]}@"
+          f"{INGEST_FPS} AVC ({AU_BYTES} B "
+          f"frames, {KEY_BYTES} B keyframe every {GOP}) + AAC "
+          f"{AAC_SAMPLES}-sample packets of {AAC_BYTES} B (made in "
+          f"{make_s:.2f} s); dechunker native {chunks.native_available()} | "
+          + " | ".join(parts) + f" | {smi}", flush=True)
+    return streams
+
+
+def flavor_phase(smi, streams):
+    """Phase 23: four of phase 22's streams through a flavor push over
+    loopback, back byte-identical with their pts, dts and track info."""
+    import asyncio
+    from swiftvideo_tpu_torch.core import EventBox, Tx
+    from swiftvideo_tpu_torch.net import flavor
+    streams = streams[:FLAVOR_STREAMS]
+    port = free_port()
+
+    async def relay():
+        received, keep = {}, []
+
+        def on_subscriber(sub):
+            keep.append(sub)
+            keep.append(sub >> Tx(lambda s: (received.setdefault(
+                s.workspace_token(), []).append(s), EventBox.nothing(None))[1]))
+
+        server = flavor.Flavor(on_subscriber=on_subscriber)
+        await server.serve("127.0.0.1", port)
+        pubs = [await flavor.Flavor().connect(
+            f"flavor://127.0.0.1:{port}/live/cam{k}", push=True)
+            for k in range(len(streams))]
+        t = time.perf_counter()
+        dropped = await push_all(pubs, streams)
+        want = sum(len(s) for s in streams)
+        deadline = asyncio.get_running_loop().time() + 60
+        while (sum(len(v) for v in received.values()) < want
+               and asyncio.get_running_loop().time() < deadline):
+            await asyncio.sleep(0.001)
+        relay_s = time.perf_counter() - t
+        for pub in pubs:
+            pub.close()
+        await server.close()
+        return received, relay_s, dropped
+
+    received, relay_s, dropped = asyncio.run(relay())
+    bad = []
+    for k, stream in enumerate(streams):
+        got = received.get(f"live/cam{k}", [])
+        if len(got) != len(stream):
+            bad.append(f"cam{k}: {len(got)} of {len(stream)}")
+            continue
+        for s, r in zip(stream, got):
+            if (r.data() != s.data() or r.pts() != s.pts()
+                    or r.dts() != s.dts() or r.media_format != s.media_format
+                    or r.media_type != s.media_type
+                    or r.side_data().get("config")
+                    != s.side_data().get("config")):
+                bad.append(f"cam{k}: sample at {s.pts()} differs")
+                break
+    if any(dropped) or bad:
+        fail(f"flavor relay: dropped {dropped}, {bad}")
+    total = sum(len(s.data()) for st in streams for s in st)
+    print(f"[23 flavor relay] {len(streams)} of phase 22's streams pushed "
+          f"over loopback: {sum(len(s) for s in streams)} samples byte-"
+          f"identical with their pts, dts, format and config; "
+          f"{total / 1e6:.1f} MB in {relay_s:.3f} s = "
+          f"{total / 1e6 / relay_s:.1f} MB/s | {smi}", flush=True)
+
+
+def network_phases(dev, smi):
+    """Phases 20-23 in one scratch directory, removed afterwards."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        rows = mix_phase(dev, smi, work)
+        rows.append(wall_ingest_phase(dev, smi))
+        t0 = time.perf_counter()
+        streams = serve_phase(smi, work)
+        t1 = time.perf_counter()
+        flavor_phase(smi, streams)
+        print(f"[22-23 time] serve {t1 - t0:.1f} s, flavor "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA card")
@@ -1578,6 +2295,7 @@ def main() -> None:
     pyramid_rows = pyramid_phase(dev, ctx, smi, luma_sample)
     packed_phase(dev, ctx, rng)
     station_phase(dev, rng, smi)
+    net_rows = network_phases(dev, smi)
 
     frame_rows = [
         ("K1", "frame_composite (K1: planar-yuv cameras)", cam_srcs,
@@ -1609,6 +2327,7 @@ def main() -> None:
                         "bound_ms": bms, "bound_by": by, "library_ms": None})
     kernels.append(wall_k1)
     kernels.extend(pyramid_rows)
+    kernels.extend(net_rows)
     print("[16 profiler] " + ("; ".join(profiler_notes) or "every profile "
                               "recorded every launch and activity"),
           flush=True)

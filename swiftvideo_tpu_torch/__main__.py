@@ -1,0 +1,8 @@
+"""``python -m swiftvideo_tpu_torch`` entry point."""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,7 +23,8 @@ The kernels are built on first use with ``nvcc`` into ``build/`` inside
 this package (ops/nvcc.py: a plain C interface, loaded with ctypes) and
 launch on the current stream.  CPU tensors take the plain version
 (ops/composite.composite_stack_torch); CUDA tensors take the kernel or
-raise.  ``launches`` counts kernel launches.
+raise.  ``launches`` counts kernel launches, ``kernel_launches`` the same
+by kernel name.
 """
 
 from __future__ import annotations
@@ -42,8 +43,11 @@ from . import nvcc
 from .composite import composite_stack_torch, packed
 
 # kernel launches since import; a plain integer so a run can show that its
-# frames went through the kernel
+# frames went through the kernel, and the same count by kernel: the yuv
+# targets' (K1, K2) and the RGBA / BGRA targets' (K3)
 launches = 0
+YUV_KERNEL, RGBA_KERNEL = "frame_composite_kernel", "frame_composite_rgba_kernel"
+kernel_launches = {YUV_KERNEL: 0, RGBA_KERNEL: 0}
 
 KERNEL_TARGETS = (PixelFormat.y420p, PixelFormat.nv12, PixelFormat.nv21,
                   PixelFormat.RGBA, PixelFormat.BGRA)
@@ -249,6 +253,8 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
     else:
         outs = [torch.empty(s, dtype=torch.uint8, device=dev) for s in shapes]
     lib = build()
+    kernel = RGBA_KERNEL if out_fmt in (PixelFormat.RGBA,
+                                        PixelFormat.BGRA) else YUV_KERNEL
     table = descriptors(size, sources)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -260,4 +266,5 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
             raise RuntimeError(f"frame_composite launch failed: CUDA error "
                                f"{err}")
         launches += 1
+        kernel_launches[kernel] += 1
     return outs

@@ -33,6 +33,11 @@ import swiftvideo_tpu_torch.mix.segmenter
 import swiftvideo_tpu_torch.interop
 import swiftvideo_tpu_torch.ops.matscale
 import swiftvideo_tpu_torch.parallel
+# nor protobuf: the proto package imports without it and says so
+sys.modules["google.protobuf"] = None
+import swiftvideo_tpu_torch.proto
+import swiftvideo_tpu_torch.net
+import swiftvideo_tpu_torch.cli
 from swiftvideo_tpu_torch.core import Bus, EventBox, StepClock, TimePoint, Tx
 from swiftvideo_tpu_torch.media import PixelFormat, create_picture_sample
 from swiftvideo_tpu_torch.scene import Composition, Element, ElementState, Scene
@@ -60,6 +65,9 @@ composer.close()
 codec = sorted(m for m in sys.modules
                if m.startswith("swiftvideo_tpu_torch.codec."))
 print(json.dumps({"frames": len(frames), "codec": codec,
+                  "proto_available": swiftvideo_tpu_torch.proto.available(),
+                  "net": sorted(m for m in sys.modules
+                                if m.startswith("swiftvideo_tpu_torch.net.")),
                   "y": int(frames[-1].planes()[0][9, 16]),
                   "jax": any(m == "jax" or m.startswith("jax.")
                              for m in sys.modules),
@@ -75,8 +83,8 @@ _BANNED = ("jax", "triton", "swiftvideo_tpu")
 
 def _port_files():
     root = Path(REPO)
-    return sorted((root / "swiftvideo_tpu_torch").rglob("*.py")) + [
-        root / "chip_smoke.py"]
+    return sorted((root / "swiftvideo_tpu_torch").rglob("*.py")) + sorted(
+        (root / "examples").glob("torch_*.py")) + [root / "chip_smoke.py"]
 
 
 def test_port_sources_import_no_jax_triton_or_jax_package():
@@ -121,8 +129,10 @@ def test_scan_covers_the_codec_layer():
 
 def test_port_never_imports_jax_or_triton():
     """One Composer tick in a fresh process that also imports the codec
-    layer and the segmenter with PIL and cv2 unimportable: no JAX, triton
-    or JAX-package module is loaded."""
+    layer and the segmenter with PIL and cv2 unimportable, and the proto
+    package, the network layer and the CLI with protobuf unimportable: no
+    JAX, triton or JAX-package module is loaded, and ``proto.available()``
+    says False."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _ONE_TICK], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -132,9 +142,63 @@ def test_port_never_imports_jax_or_triton():
     assert out["frames"] == 1 and abs(out["y"] - 200) <= 1
     assert {f"swiftvideo_tpu_torch.codec.{m}" for m in _CODEC} <= \
         set(out["codec"])
+    assert out["proto_available"] is False
+    assert {f"swiftvideo_tpu_torch.net.{m}" for m in _NET} <= set(out["net"])
     assert out["jax"] is False
     assert out["triton"] is False
     assert out["jax_package"] == []
+
+
+_NET = ("tcp", "live", "flavor", "rtmp", "rtmp.amf", "rtmp.chunks",
+        "rtmp.media", "rtmp.session", "rtmp.rtmp")
+
+
+def test_scan_covers_the_network_layer_cli_and_examples():
+    """The scan reaches every module of ``net/`` and ``proto/``, the CLI,
+    ``__main__`` and the port's examples."""
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    net = {"swiftvideo_tpu_torch/net/__init__.py",
+           "swiftvideo_tpu_torch/net/rtmp/__init__.py"} | {
+        f"swiftvideo_tpu_torch/net/{m.replace('.', '/')}.py"
+        for m in _NET if m != "rtmp"}
+    assert len(net) == 10 and net <= names
+    assert {"swiftvideo_tpu_torch/proto/__init__.py",
+            "swiftvideo_tpu_torch/proto/generated/swiftvideo_pb2.py",
+            "swiftvideo_tpu_torch/cli.py",
+            "swiftvideo_tpu_torch/__main__.py"} <= names
+    examples = {n for n in names if n.startswith("examples/torch_")}
+    assert len(examples) == 10
+
+
+_PROBE = r"""
+import json, runpy, sys
+sys.modules["jax"] = None
+sys.argv = ["swiftvideo_tpu_torch", "probe", sys.argv[1]]
+try:
+    runpy.run_module("swiftvideo_tpu_torch", run_name="__main__")
+except SystemExit as exit:
+    code = exit.code
+print(json.dumps({"rc": code, "loaded": sorted(
+    m for m, mod in sys.modules.items()
+    if mod is not None and m.split(".")[0] in ("jax", "swiftvideo_tpu"))}))
+"""
+
+
+def test_cli_probe_runs_without_jax(tmp_path):
+    """``python -m swiftvideo_tpu_torch probe`` on a small Annex-B file,
+    with JAX unimportable: it answers, and no JAX or JAX-package module
+    is loaded."""
+    annexb = tmp_path / "v.h264"
+    annexb.write_bytes(b"\x00\x00\x00\x01\x67\x42\xc0\x0a"
+                       + b"\x00\x00\x00\x01\x68\xce\x3c\x80")
+    proc = subprocess.run([sys.executable, "-c", _PROBE, str(annexb)],
+                          cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    info, out = json.loads(lines[-2]), json.loads(lines[-1])
+    assert info["container"] == "annexb" and info["nal_units"] == 2
+    assert out == {"rc": 0, "loaded": []}
 
 
 def test_cuda_context_needs_a_card(monkeypatch):
