@@ -20,10 +20,13 @@ started together) and drives the port's paths at full size:
   with 16x16 blocks and a 64-pixel window, against the plain version, on a
   tie-heavy 1080p frame (periodic every 8 pixels, shifted by half a
   period, so that vectors of equal cost tie exactly) and on a reference
-  shifted by a known vector.  Phase 2 prints each motion kernel's
-  registers and shared memory (ptxas) and what its SASS holds
-  (``cuobjdump -sass``): the SSD kernel must hold an integer tensor-core
-  instruction, and the SAD kernel's byte-SIMD opcode sets its bound;
+  shifted by a known vector; at search 48 through the entry point too,
+  on a frame moved 16 columns (where the u8 emit's float32 table, the one
+  every route reads, differs from the float64 oracles').  Phase 2 prints
+  each motion kernel's registers and shared memory (ptxas) and what its
+  SASS holds (``cuobjdump -sass``): the SSD and coarse kernels must hold an
+  integer tensor-core instruction, the refine kernel byte-SIMD SAD and dot
+  products, and the SAD kernel's byte-SIMD opcode sets its bound;
 * the batch paths (phases 12-15): the transcode ladder (config 4, a 1080p
   frame to 1280x720, 854x480 and 640x360 through ``matscale.scale_y420p``,
   within 1 LSB of the plain composite; the same rungs through the frame
@@ -38,11 +41,13 @@ started together) and drives the port's paths at full size:
   the same grid (blank excess cells);
 * the two-stage motion search (phase 17): ``me_fullsearch_pyramid`` at
   1080p and 4K, 16/64, refine 2, SSD through ``run_compute_kernel`` and SAD
-  through its entry point, one launch of the SSD kernel's coarse mode
-  (stride-2 grid) and one of the refine kernel a frame, equal to its plain
-  version on the card, with the blocks that differ from the exhaustive
-  search printed for information and the refine as torch ops timed beside
-  its kernel;
+  through its entry point, one launch of the coarse kernel (stride-2 grid)
+  and one of the refine kernel a frame, equal to its plain version on the
+  card; each stage against its own plain version (the coarse stage at
+  searches 64 and 62 and strides 2 and 1, on a 1080p frame of exact ties
+  too), with the blocks that differ from the exhaustive search printed for
+  information, the refine as torch ops timed beside its kernel and the
+  pyramid's call beside exhaustive K5's and K4's;
 * packed 4:2:2 (phase 18): yuvs and zvuy cameras onto a y420p canvas through
   ``registry.composite_frame`` and a VideoMixer tick (unpacked to y422p, one
   frame-kernel launch, 0 LSB against the plain version) and a yuvs target;
@@ -107,6 +112,7 @@ PROFILE_TRIES = 3
 profiler_notes: list[str] = []
 TENSOR_OPCODES = ("IMMA", "HMMA", "HGMMA", "IGMMA")
 BYTE_SAD_OPCODES = ("VABSDIFF4",)  # |a - b| over 4 bytes, summed into an accumulator
+BYTE_DOT_OPCODES = ("IDP",)        # __dp4a: a 4-byte dot product into an accumulator
 # the batch paths: the transcode ladder's rungs (config 4), the device
 # resampler's channels and input samples (config 2: 64 stereo streams, one
 # second at 44.1 kHz), the mixing wall (config 5: 64 1080p streams onto a
@@ -735,20 +741,69 @@ def grid_candidates(h, w, motion, stride):
     return nx * ny, len(ox) * len(oy) * (2 * REFINE + 1) ** 2
 
 
+def lattice_frames(h, w, dev):
+    """(cur, ref) on ``dev`` whose coarse candidates tie exactly: ref(x, y) =
+    T[(x + y // 4) % 8, y % 16] and cur(x, y) = ref(x + 2, y - 8), so the
+    vectors (2, -8) and (-2, 8) have equal scores and costs, and the one the
+    two-stage minimum takes (tx first) lies in the coarse kernel's second M
+    tile while its first tile holds the other."""
+    table = np.random.default_rng(5).integers(0, 256, (8, 16))
+    yy, xx = np.mgrid[0:h + 8, 0:w + 2]
+    big = table[(xx + yy // 4) % 8, yy % 16].astype(np.uint8)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (big[:h, 2:w + 2], big[8:h + 8, :w]))
+
+
 def pyramid_phase(dev, ctx, smi, luma_sample):
     """Phase 17: the two-stage search through the registry (ssd, its
     defaults) and its entry point (sad) at 1080p and 4K, against its plain
-    version on the card; the coarse and refine launches' times.  Returns
-    the kernels-line rows of K5's coarse mode and the refine kernel."""
+    version on the card; each stage against its own plain version (the
+    coarse stage at searches 64 and 62, strides 2 and 1; the refine, SSD
+    and SAD; at 1080p also on a frame of exact ties); the coarse and refine
+    launches' times, and the pyramid's call beside exhaustive K5's and
+    K4's.  Returns the kernels-line rows of the coarse kernel and the
+    refine kernel."""
     from swiftvideo_tpu_torch.media import PixelFormat, create_picture_sample
     from swiftvideo_tpu_torch.ops import composite, frame, motion, registry
     kernel = registry.default_compute_kernel_from_string(
         "me_fullsearch_pyramid")
     rows, parts, launched = {}, [], {}
     errs = {"coarse": 0, "refine": 0}
+
+    def stages_equal_plain(cur, ref, label, searches, strides):
+        """Each stage against its plain version on the same inputs: the
+        refine re-scores around the coarse pick, so the whole map alone
+        could hide a coarse pick one grid step off."""
+        for search in searches:
+            for stride in strides:
+                got = motion.me_coarse(cur, ref, BLOCK, search, stride)
+                want = motion.me_coarse_torch(cur, ref, BLOCK, search, stride)
+                e = int((got - want).abs().max())
+                errs["coarse"] = max(errs["coarse"], e)
+                if got.dtype != torch.int32 or e:
+                    fail(f"pyramid coarse {label} {BLOCK}/{search} stride "
+                         f"{stride}: the kernel's vectors differ from the "
+                         f"plain version's in "
+                         f"{int((got != want).any(-1).sum())} blocks (max {e})")
+        raw = motion.me_coarse_torch(cur, ref, BLOCK, SEARCH,
+                                     motion.coarse_stride(cur.shape[1]))
+        for metric in ("ssd", "sad"):
+            got = motion.me_refine(cur, ref, raw, BLOCK, SEARCH, REFINE,
+                                   metric)
+            want = motion.refine_torch(cur, ref, raw, BLOCK, SEARCH, REFINE,
+                                       metric)
+            e = max_err([got], [want])
+            errs["refine"] = max(errs["refine"], e[0])
+            if e[1]:
+                fail(f"pyramid refine {metric} {label}: the kernel's map "
+                     f"differs from the plain version's around the same "
+                     f"coarse vectors in {e[1]} channels (max {e[0]})")
+        return raw
+
     for res, (h, w) in PYRAMID_SIZES:
         cur, ref = pyramid_frames(h, w, 17, dev)
         stride = motion.coarse_stride(w)
+        coarse_name = motion.COARSE_KERNELS[stride]
         for metric in ("ssd", "sad"):
             frame.launches = motion.launches = composite.calls = 0
             motion.route_launches.update(dict.fromkeys(motion.route_launches,
@@ -765,7 +820,7 @@ def pyramid_phase(dev, ctx, smi, luma_sample):
                                                   REFINE, metric)
             torch.cuda.synchronize()
             routes = {k: n for k, n in motion.route_launches.items() if n}
-            if routes != {motion.COARSE_KERNEL: 1, motion.REFINE_KERNEL: 1}:
+            if routes != {coarse_name: 1, motion.REFINE_KERNEL: 1}:
                 fail(f"pyramid {metric} {res}: launches {routes}")
             if metric == "ssd":
                 launched[res] = routes
@@ -779,38 +834,21 @@ def pyramid_phase(dev, ctx, smi, luma_sample):
             full = motion.me_fullsearch(cur, ref, BLOCK, SEARCH, metric)
             off = int((mv != full).any(-1).sum())
             parts.append(f"{metric} {res}: equal to plain, launches "
-                         f"{per_frame} a frame, {off} of "
+                         f"{per_frame} a frame ({coarse_name}, "
+                         f"{motion.REFINE_KERNEL}), {off} of "
                          f"{mv.shape[0] * mv.shape[1]} blocks differ from the "
                          f"exhaustive {motion.KERNELS[metric]}")
-        # each stage against its own plain version on the same inputs: the
-        # refine re-scores around the coarse pick, so the whole map alone
-        # could hide a coarse pick one grid step off (the search-62 grid at
-        # 1080p puts dx on odd tx at the left edge)
-        searches = (SEARCH, 62) if res == PYRAMID_SIZES[0][0] else (SEARCH,)
-        for search in searches:
-            got = motion.me_coarse(cur, ref, BLOCK, search, stride)
-            want = motion.me_coarse_torch(cur, ref, BLOCK, search, stride)
-            e = int((got - want).abs().max())
-            errs["coarse"] = max(errs["coarse"], e)
-            if got.dtype != torch.int32 or e:
-                fail(f"pyramid coarse {res} {BLOCK}/{search}: the kernel's "
-                     f"vectors differ from the plain version's in "
-                     f"{int((got != want).any(-1).sum())} blocks (max {e})")
-        raw = motion.me_coarse_torch(cur, ref, BLOCK, SEARCH, stride)
-        for metric in ("ssd", "sad"):
-            got = motion.me_refine(cur, ref, raw, BLOCK, SEARCH, REFINE,
-                                   metric)
-            want = motion.refine_torch(cur, ref, raw, BLOCK, SEARCH, REFINE,
-                                       metric)
-            e = max_err([got], [want])
-            errs["refine"] = max(errs["refine"], e[0])
-            if e[1]:
-                fail(f"pyramid refine {metric} {res}: the kernel's map differs "
-                     f"from the plain version's around the same coarse "
-                     f"vectors in {e[1]} channels (max {e[0]})")
-        parts.append(f"{res}: coarse vectors equal to plain (search "
-                     f"{', '.join(map(str, searches))}), refine maps equal to "
-                     f"plain (ssd, sad)")
+        # the top two and the bottom block rows and the left blocks clamp
+        # their windows; search 62 puts the left blocks' grid on odd tx
+        raw = stages_equal_plain(cur, ref, res, (SEARCH, 62), (2, 1))
+        checked = (f"{res}: coarse vectors equal to plain (searches {SEARCH} "
+                   f"and 62, strides 2 and 1), refine maps equal to plain "
+                   f"(ssd, sad)")
+        if res == PYRAMID_SIZES[0][0]:
+            stages_equal_plain(*lattice_frames(h, w, dev), f"{res} ties",
+                               (SEARCH, 62), (2,))
+            checked += "; the same on a frame of exact ties (stride 2)"
+        parts.append(checked)
 
         def coarse_call(cur=cur, ref=ref, stride=stride):
             return motion.me_coarse(cur, ref, BLOCK, SEARCH, stride)
@@ -830,12 +868,16 @@ def pyramid_phase(dev, ctx, smi, luma_sample):
         coarse_plain = timed_ms(lambda: motion.me_coarse_torch(
             cur, ref, BLOCK, SEARCH, stride), reps=3, batch=1, warmup=1)
         t = {"coarse call": timed_ms(coarse_call, reps=10, batch=5),
-             "coarse device": device_ms(coarse_call, "motion_ssd_kernel"),
+             "coarse device": device_ms(coarse_call, coarse_name.split()[0]),
              "refine call": timed_ms(refine_call, reps=10, batch=5),
              "refine device": device_ms(refine_call, "motion_refine_kernel"),
              "refine plain call": timed_ms(refine_plain, reps=5, batch=2),
              "refine plain device": device_total_ms(refine_plain)[0],
              "pyramid call": timed_ms(pyramid_call, reps=10, batch=5),
+             "K5 call": timed_ms(lambda: motion.me_fullsearch(
+                 cur, ref, BLOCK, SEARCH, "ssd"), reps=10, batch=5),
+             "K4 call": timed_ms(lambda: motion.me_fullsearch(
+                 cur, ref, BLOCK, SEARCH, "sad"), reps=10, batch=5),
              "coarse plain": coarse_plain}
         grid, refine_cands = grid_candidates(h, w, motion, stride)
         nbytes = 2 * h * w + (h // BLOCK) * (w // BLOCK) * 8
@@ -860,17 +902,20 @@ def pyramid_phase(dev, ctx, smi, luma_sample):
             f"{r_bound[0]:.6f} ({r_bound[1]}); refine as torch ops call "
             f"{t['refine plain call']:.4f} device "
             f"{t['refine plain device']:.4f}; pyramid call "
-            f"{t['pyramid call']:.4f}")
+            f"{t['pyramid call']:.4f} against exhaustive K5's call "
+            f"{t['K5 call']:.4f} and K4's {t['K4 call']:.4f}")
     print("[17 pyramid, exact vs plain, ms] " + "; ".join(parts)
           + f" | {smi}", flush=True)
     t, c_bound, r_bound = rows[PYRAMID_SIZES[0][0]]
     routes = launched[PYRAMID_SIZES[0][0]]
+    coarse_name = motion.COARSE_KERNELS[motion.coarse_stride(
+        PYRAMID_SIZES[0][1][1])]
     return [
-        {"name": f"motion_ssd_kernel (coarse, stride 2; 1080p {BLOCK}/"
-                 f"{SEARCH})", "route": "cuda",
+        {"name": f"{coarse_name} (coarse, stride 2; 1080p {BLOCK}/{SEARCH})",
+         "route": "cuda",
          "source": "swiftvideo_tpu_torch/csrc/motion_search.cu",
          "replaces": REPLACES["coarse"],
-         "launches": routes[motion.COARSE_KERNEL],
+         "launches": routes[coarse_name],
          "max_abs_err": errs["coarse"],
          "ms": t["coarse call"], "device_ms": t["coarse device"],
          "plain_ms": t["coarse plain"], "bound_ms": c_bound[0],
@@ -1900,13 +1945,16 @@ def main() -> None:
     sass = kernel_sass(nvcc.library_path(motion.SOURCE))
     ptxas = ptxas_lines(nvcc.build_logs.get(motion.SOURCE.stem, ""))
     parts, sad_terms_per_op = [], 0
-    instances = {"sad": "ILi2E", "ssd": "ILi4ELb0E", "coarse": "ILi4ELb1E",
-                 "refine": ""}
-    names = dict(motion.KERNELS, coarse="motion_ssd_kernel",
+    instances = {"sad": "ILi2E", "ssd": "ILi4ELb0E", "dense coarse": "ILi4ELb1E",
+                 "coarse": "ILi4E", "refine": f"ILi{REFINE}E"}
+    names = dict(motion.KERNELS, coarse="motion_coarse_kernel",
                  refine="motion_refine_kernel")
+    names["dense coarse"] = "motion_ssd_kernel"
     for metric, kname in names.items():
         # the instantiation the wrapper launches: kname<GROUP[metric]> (the
-        # SSD kernel's exhaustive and coarse modes, <4, false> and <4, true>)
+        # SSD kernel's exhaustive and stride-1 coarse modes, <4, false> and
+        # <4, true>; the stride-2 coarse kernel <4>), the refine kernel's
+        # for the main path's refine radius, <REFINE>
         inst = f"{kname}{instances[metric]}"
         found = [k for k in sass if inst in k]
         if len(found) != 1:
@@ -1914,15 +1962,20 @@ def main() -> None:
         ops = sass[found[0]]
         tensor = {o: ops[o] for o in TENSOR_OPCODES if ops[o]}
         byte_sad = {o: ops[o] for o in BYTE_SAD_OPCODES if ops[o]}
-        if metric in ("ssd", "coarse") and not tensor:
+        byte_dot = {o: ops[o] for o in BYTE_DOT_OPCODES if ops[o]}
+        if metric in ("ssd", "coarse", "dense coarse") and not tensor:
             fail(f"{kname}'s SASS holds no tensor-core instruction")
+        if metric == "refine" and not (byte_sad and byte_dot):
+            fail(f"{kname} scores without byte-SIMD instructions: SAD "
+                 f"{byte_sad or 'none'}, dot products {byte_dot or 'none'}")
         if metric == "sad" and byte_sad:
             sad_terms_per_op = 4  # one lane-instruction: 4 bytes' |c - r|, accumulated
         parts.append(f"{kname} ({metric}): "
                      f"{ptxas.get(found[0], 'ptxas line not in the log')}; "
                      f"SASS {sum(ops.values())} instructions, tensor-core "
                      f"{tensor or 'none'}, byte-SIMD SAD {byte_sad or 'none'}, "
-                     f"LDS {ops['LDS']}, top {ops.most_common(6)}")
+                     f"dot {byte_dot or 'none'}, LDS {ops['LDS']}, top "
+                     f"{ops.most_common(6)}")
     clock_hz = sm_clock_hz()
     print("[2 motion kernels] " + " | ".join(parts) + f" | max SM clock "
           f"{clock_hz / 1e6:.0f} MHz", flush=True)
@@ -2253,6 +2306,29 @@ def main() -> None:
                  "blocks")
     parts.append(f"shift ({dx}, {dy}) recovered on every interior block, sad "
                  "and ssd")
+    # search 48 through the entry point: the u8 emit's float32 table (the JAX
+    # device routes') differs from the oracles' float64 one at |m| = 16; a
+    # current frame moved 16 columns right puts the winners at m = 16
+    moved = torch.roll(base_ref, 16, dims=1).contiguous()
+    table48 = motion.tables(BLOCK, 48)[3]
+    for key, metric in (("K4", "sad"), ("K5", "ssd")):
+        for name, (cur, ref) in (("1080p", me_frames["1080p"]),
+                                 ("1080p moved 16", (moved, base_ref))):
+            motion.launches = 0
+            motion.route_launches.update(dict.fromkeys(motion.route_launches,
+                                                       0))
+            got = motion.me_fullsearch(cur, ref, BLOCK, 48, metric)
+            torch.cuda.synchronize()
+            routes = {k: n for k, n in motion.route_launches.items() if n}
+            want = motion.me_fullsearch_torch(cur, ref, BLOCK, 48, metric)
+            if routes != {motion.KERNELS[metric]: 1} or not (
+                    got.is_cuda and torch.equal(got, want)):
+                fail(f"{key} {name} 16/48: launches {routes}, "
+                     f"{int((got != want).any(-1).sum())} blocks differ from "
+                     f"the plain version's")
+            at16 = int((got[..., 0] == int(table48[24 + 16])).sum())
+            parts.append(f"{key} {metric} {name} 16/48 equal, {at16} blocks "
+                         f"at m = 16 (u8 {int(table48[24 + 16])})")
     print("[10 motion via run_compute_kernel, exact] " + "; ".join(parts),
           flush=True)
 

@@ -18,7 +18,10 @@ Two scores, both exact over integers:
 
 The MV-cost tables are built on the host in float64 and rounded to
 float32, as the JAX package builds them; the kernel does not evaluate
-``log2``.  ``me_fullsearch`` launches a kernel of
+``log2``.  Every route emits the u8 vector channel from one float32 table
+(``tables``), as the JAX package's device routes emit it (``_mv_rgba``);
+the float64 oracles round some components of searches 30, 48, 60, 96 and
+others one step apart.  ``me_fullsearch`` launches a kernel of
 ``csrc/motion_search.cu`` for CUDA tensors (``motion_sad_kernel`` and
 ``motion_ssd_kernel`` replace the TPU kernels
 ``motion.py::_me_pallas_program`` and ``::_me_ssd_pallas_program``) and
@@ -27,20 +30,22 @@ launches, ``route_launches`` the launches of each kernel.
 
 ``me_fullsearch_pyramid`` is the two-stage search of the JAX package's
 ``motion.py::me_fullsearch_pyramid``: a coarse SSD search over a stride-2
-candidate grid (``motion_ssd_kernel`` in its coarse mode on the card, in
-place of the JAX package's ``_me_mxu_program``), then an exact re-score of
-the ``(2 refine + 1)^2`` candidates around each coarse pick with the SSD or
-SAD score (``motion_refine_kernel`` on the card: the same stage as torch
-ops, ``refine_torch``, took about 20 times the coarse launch's device time
-on an H100, ``chip_smoke.py`` phase 17).  It is not exhaustive, so it is
-held to the JAX pyramid, not to the oracles.
+candidate grid (``motion_coarse_kernel`` on the card, which stages and
+scores the grid alone, in place of the JAX package's ``_me_mxu_program``;
+the stride-1 grid is ``motion_ssd_kernel``'s coarse mode), then an exact
+re-score of the ``(2 refine + 1)^2`` candidates around each coarse pick with
+the SSD or SAD score (``motion_refine_kernel`` on the card: the same stage
+as torch ops, ``refine_torch``, took about 20 times the coarse launch's
+device time on an H100, ``chip_smoke.py`` phase 17).  It is not exhaustive,
+so it is held to the JAX pyramid, not to the oracles.
 
 The kernels' host-side arithmetic lives here, where the CPU tests reach
 it: ``plan`` (one row per macroblock: origin, clamped window, candidate
 counts, cost-table offsets; the kernels read it), the chunking of a
 window into ``CHUNK`` x ``CHUNK`` candidates, the candidates each SAD
-thread and each SSD lane owns, and the SSD kernel's tensor-core operand
-layout (``mma_*`` and ``ssd_*_source``).
+thread and each SSD lane owns, the SSD kernel's tensor-core operand
+layout (``mma_*`` and ``ssd_*_source``) and the coarse kernel's
+(``coarse_*``).
 """
 
 from __future__ import annotations
@@ -57,9 +62,13 @@ from . import nvcc
 SOURCE = nvcc.CSRC / "motion_search.cu"
 METRICS = ("sad", "ssd")
 KERNELS = {"sad": "motion_sad_kernel", "ssd": "motion_ssd_kernel"}
-# the SSD kernel's coarse mode (motion_ssd_kernel<4, true>) and the refine
-# kernel, the pyramid's two launches, by their launch counts
-COARSE_KERNEL = "motion_ssd_kernel (coarse)"
+# the pyramid's two launches, by their launch counts: the coarse stage on
+# the stride-2 grid (motion_coarse_kernel<4>) or, when no group size divides
+# the block columns, on the stride-1 grid (motion_ssd_kernel<4, true>), and
+# the refine kernel
+COARSE_KERNEL = "motion_coarse_kernel"
+DENSE_COARSE_KERNEL = "motion_ssd_kernel (coarse)"
+COARSE_KERNELS = {2: COARSE_KERNEL, 1: DENSE_COARSE_KERNEL}
 REFINE_KERNEL = "motion_refine_kernel"
 # the pyramid's coarse stage: the first of these that divides the block
 # columns makes it the stride-2 grid, none the stride-1 (exhaustive) grid
@@ -73,6 +82,8 @@ SAD_RUN = 12          # candidate rows of one SAD thread
 SSD_WARP_ROWS = 24    # candidate rows of one SSD warp: 3 tiles of 8
 SSD_PAIRS = (SSD_WARP_ROWS + KERNEL_BLOCK) // 2  # window row pairs it reads
 SSD_KSTEPS = 12       # row pairs (k = 32 steps) of one tile's K
+GRID_CHUNK = 24       # grid candidates per axis of a coarse-kernel chunk
+COARSE_CUR_WORDS = 12  # words of a zero-padded current row (coarse kernel)
 PLAN_FIELDS = ("ox", "oy", "xlo", "ylo", "n_x", "n_y", "di0", "dj0")
 # macroblocks of one block row that a CUDA block searches together, sharing
 # one staged window (kSadGroup and kSsdGroup of the kernels)
@@ -81,13 +92,14 @@ GROUP = {"sad": 2, "ssd": 4}
 GEOMETRY = {"kBlock": KERNEL_BLOCK, "kChunk": CHUNK, "kThreads": THREADS,
             "kSadRun": SAD_RUN, "kYHalf": SSD_WARP_ROWS,
             "kKSteps": SSD_KSTEPS, "kPlanFields": len(PLAN_FIELDS),
-            "kSadGroup": GROUP["sad"], "kSsdGroup": GROUP["ssd"]}
+            "kSadGroup": GROUP["sad"], "kSsdGroup": GROUP["ssd"],
+            "kGridChunk": GRID_CHUNK, "kCurWords": COARSE_CUR_WORDS}
 
 # kernel launches since import, in all and by kernel name; plain integers so
 # a run can show that its searches went through the kernels
 launches = 0
 route_launches = {name: 0 for name in (*KERNELS.values(), COARSE_KERNEL,
-                                        REFINE_KERNEL)}
+                                        DENSE_COARSE_KERNEL, REFINE_KERNEL)}
 _LAMBDA = 4.0
 _QPEX = 4.0
 _SAD_SCALE = np.float32(256.0 / 255.0)   # integer SAD -> UNORM*256 units
@@ -117,17 +129,19 @@ def tables(block: int, search: int) -> Tuple[int, np.ndarray, np.ndarray,
     tables are indexed by d - d_lo.  ``cost2[i, j]`` is the SAD score's
     deltaCost2 of mv = (-d_i, -d_j); ``axis[i]`` is the SSD score's
     per-axis half (its cx and cy).  ``mv_u8[m + max_mv]`` is the u8
-    channel of a clamped vector component m (half-to-even rint, in float64
-    like the oracle)."""
+    channel of a clamped vector component m, half-to-even rint in float32
+    as the JAX package's device routes compute it (``_mv_rgba``); the
+    float64 oracles differ by one step for some components (at searches
+    30, 48, 60 and 96 among others)."""
     d_lo = block // 2 - search // 2
     n_d = max(search - block - d_lo, 1)
     comp = _comp(-(d_lo + np.arange(n_d, dtype=np.float64)))
     cost2 = (_QPEX * (comp[:, None] + comp[None, :])).astype(np.float32)
     axis = (_QPEX * comp).astype(np.float32)
     max_mv = search // 2
-    m = np.arange(-max_mv, max_mv + 1, dtype=np.float64)
-    mv_u8 = np.clip(np.rint((m / max_mv * 0.5 + 0.5) * 255.0), 0,
-                    255).astype(np.uint8)
+    m = np.arange(-max_mv, max_mv + 1).astype(np.float32)
+    n = m / np.float32(max_mv) * np.float32(0.5) + np.float32(0.5)
+    mv_u8 = np.clip(np.rint(n * np.float32(255.0)), 0, 255).astype(np.uint8)
     return d_lo, cost2, axis, mv_u8
 
 
@@ -244,6 +258,86 @@ def ssd_b_source(lane: int, b: int, kstep: int):
     B[16 j + c, n] = cur[2 kstep + j - n][c], inside the block's 16 rows."""
     r = 2 * kstep + b - lane // 4
     return r if 0 <= r < KERNEL_BLOCK else None
+
+
+# The coarse kernel (motion_coarse_kernel<G>) scores the stride-2 grid alone.
+# Grid column m of a macroblock is its window candidate ix = e + 2 m (e =
+# di0 & 1, so that tx - ox - d_lo is even), grid row n is iy = 2 n.  A chunk
+# is GRID_CHUNK x GRID_CHUNK grid candidates; each staged row holds
+# coarse_row_words(G) words from the group's first grid column.  Two warps a
+# macroblock: M tile mt holds grid rows 8 mt + [0, 16), N tile j grid
+# columns 8 j + [0, 8), and K step r is current row r against 32 staged
+# bytes.
+def coarse_union_grid(group: int) -> int:
+    """Grid columns of a group's chunk: its macroblocks' first grid columns
+    lie at most 8 (group - 1) grid columns apart."""
+    return GRID_CHUNK + 8 * (group - 1)
+
+
+def coarse_row_words(group: int) -> int:
+    """Words of a staged row that an A fragment or a box sum may read."""
+    return 4 * (group - 1) + 16
+
+
+def coarse_offsets(pl: np.ndarray, first: int, count: int):
+    """The coarse kernel's arithmetic for the group of plan rows ``first``
+    .. ``first + count - 1``: (e0, nyg, nxg_max, rows), one row (e, nxg, a,
+    delta, word) per macroblock: e the parity of its grid's ix, nxg its
+    grid columns, a the byte of its first grid column in the staged row
+    (even; the row starts at the first macroblock's), delta = a & 3 the
+    shift of its B band and word = a >> 2 its first A word.  nyg: the
+    group's grid rows (one ylo and n_y for the group)."""
+    rows = [tuple(int(v) for v in pl[first + k]) for k in range(count)]
+    xlo0, n_y, di00 = rows[0][2], rows[0][5], rows[0][6]
+    e0 = di00 & 1
+    out = []
+    for _ox, _oy, xlo, _ylo, n_x, _n_y, di0, _dj0 in rows:
+        e = di0 & 1
+        a = xlo - xlo0 + e - e0
+        out.append((e, (n_x - e + 1) >> 1, a, a & 3, a >> 2))
+    return e0, (n_y + 1) >> 1, max(r[1] for r in out), out
+
+
+def coarse_a_source(lane: int, q: int, r: int, j: int, mt: int,
+                    word: int) -> Tuple[int, int]:
+    """(staged row, word) that A register ``q`` of ``lane`` loads for N tile
+    ``j`` at K step ``r`` in M tile ``mt``, for a macroblock whose first A
+    word is ``word``: A[m, c'] = win[2 (8 mt + m) + r][4 word + 16 j + c']."""
+    g, t = lane // 4, lane % 4
+    return (2 * (8 * mt + g + 8 * (q & 1)) + r,
+            word + 4 * j + 4 * (q >> 1) + t)
+
+
+def coarse_b_source(lane: int, b: int, delta: int) -> Tuple[int, int]:
+    """(plane, word) of the padded current row that B register ``b`` of
+    ``lane`` is: B[c', n] = cur[r][c' - 2 n - delta] for c' = 16 b + 4
+    (lane % 4) + e and n = lane // 4 starts at row byte o = 16 b + 4 (lane
+    % 4) - 2 (lane // 4) - delta, and word w of plane s holds row bytes
+    [4 w + 2 s - 16, 4 w + 2 s - 12), zero outside the row."""
+    o = 16 * b + 4 * (lane % 4) - 2 * (lane // 4) - delta
+    return (o >> 1) & 1, (o + 16) >> 2
+
+
+def coarse_lane_candidates(mt: int, lane: int):
+    """[(tile j, register q, grid row, grid column)]: the chunk candidates
+    whose cross term accumulator (j, q) of ``lane`` holds in M tile ``mt``
+    and which its warp scores (tile 1 leaves grid rows 8 .. 15 to tile 0)."""
+    out = []
+    for j in range(3):
+        for q in range(4):
+            if mt == 1 and q < 2:
+                continue
+            m, n = mma_c_element(lane, q)
+            out.append((j, q, 8 * mt + m, 8 * j + n))
+    return out
+
+
+def refine_lane_candidate(lane: int, rnd: int, refine: int):
+    """(candidate s, rows) that ``lane`` of the refine kernel scores in
+    round ``rnd``: s = 8 rnd + lane // 4 in tx-major order (ddx = s //
+    (2 refine + 1)), rows 4 (lane % 4) .. + 3 of the block; s may pass the
+    last candidate (then the lane scores nothing)."""
+    return 8 * rnd + lane // 4, range(4 * (lane % 4), 4 * (lane % 4) + 4)
 
 
 def _check(cur, ref, block: int, search: int, metric: str) -> torch.device:
@@ -450,18 +544,6 @@ def me_coarse_torch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
     return torch.stack([-best_dx, -best_dy], dim=-1).to(torch.int32)
 
 
-@lru_cache(maxsize=16)
-def pyramid_mv_u8(search: int) -> np.ndarray:
-    """The u8 channel of a clamped vector component m at m + max_mv, in
-    float32 as the JAX package's ``_mv_rgba`` computes the pyramid's map.
-    It differs from ``tables``' float64 one (the oracles') for some
-    searches, 60 among them."""
-    max_mv = search // 2
-    m = np.arange(-max_mv, max_mv + 1).astype(np.float32)
-    n = m / np.float32(max_mv) * np.float32(0.5) + np.float32(0.5)
-    return np.clip(np.rint(n * np.float32(255.0)), 0, 255).astype(np.uint8)
-
-
 def refine_torch(cur: torch.Tensor, ref: torch.Tensor, raw: torch.Tensor,
                  block: int = 16, search: int = 64, refine: int = 2,
                  metric: str = "ssd") -> torch.Tensor:
@@ -477,10 +559,10 @@ def refine_torch(cur: torch.Tensor, ref: torch.Tensor, raw: torch.Tensor,
     h, w = cur.shape
     hb, wb = h // block, w // block
     win = block + 2 * refine
-    d_lo, cost2, axis, _lut = tables(block, search)
+    d_lo, cost2, axis, mv_u8 = tables(block, search)
     n_d = axis.shape[0]
-    axis, cost2 = (torch.from_numpy(t).to(dev) for t in (axis, cost2))
-    mv_u8 = torch.from_numpy(pyramid_mv_u8(search)).to(dev)
+    axis, cost2, mv_u8 = (torch.from_numpy(t).to(dev)
+                          for t in (axis, cost2, mv_u8))
     n_off = 2 * refine + 1
     offs = torch.tensor([(ddx, ddy) for ddx in range(n_off)
                          for ddy in range(n_off)], device=dev)
@@ -597,8 +679,9 @@ def me_fullsearch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
 def me_coarse(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
               search: int = 64, stride: int = 2) -> torch.Tensor:
     """The pyramid's coarse stage: [H // block, W // block, 2] int32 raw
-    vectors (mvx, mvy) on the frames' device.  The SSD kernel's coarse mode
-    on a CUDA device (one launch), ``me_coarse_torch`` on the CPU."""
+    vectors (mvx, mvy) on the frames' device.  On a CUDA device one launch:
+    ``motion_coarse_kernel`` for stride 2, the SSD kernel's coarse mode for
+    stride 1; ``me_coarse_torch`` on the CPU."""
     global launches
     if stride not in (1, 2):
         raise ValueError(f"candidate stride {stride}")
@@ -625,15 +708,11 @@ def me_coarse(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
                  pl.data_ptr(), gr.data_ptr(), gr.shape[0], axis.data_ptr(),
                  raw.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{COARSE_KERNEL} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{COARSE_KERNELS[stride]} launch failed: CUDA "
+                           f"error {err}")
     launches += 1
-    route_launches[COARSE_KERNEL] += 1
+    route_launches[COARSE_KERNELS[stride]] += 1
     return raw
-
-
-@lru_cache(maxsize=16)
-def _device_mv_u8(search: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(pyramid_mv_u8(search)).to(device)
 
 
 def me_refine(cur: torch.Tensor, ref: torch.Tensor, raw: torch.Tensor,
@@ -658,8 +737,7 @@ def me_refine(cur: torch.Tensor, ref: torch.Tensor, raw: torch.Tensor,
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, I, I, I, I, I, P, I, P, I, P, P, P, P]
         fn.restype = I
-    cost, _lut = _device_tables(block, search, metric, dev)
-    lut = _device_mv_u8(search, dev)
+    cost, lut = _device_tables(block, search, metric, dev)
     pl, _gr = _device_plan(h, w, search, GROUP["ssd"], dev)
     n_d = tables(block, search)[2].shape[0]
     raw = raw.to(torch.int32).contiguous()

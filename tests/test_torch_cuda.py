@@ -1,7 +1,8 @@
 """The port's kernels on an NVIDIA card: the frame kernel (yuv and RGBA /
 BGRA targets) and the motion search (SAD and SSD) against their plain torch
-versions on the same CUDA tensors, the two-stage motion search (K5's
-coarse mode and the refine kernel) against its plain version, and the audio
+versions on the same CUDA tensors, the two-stage motion search (the
+coarse kernel on the stride-2 grid, K5's coarse mode on the stride-1 grid,
+and the refine kernel) against its plain version, and the audio
 folds against the host loop; the batch paths: the ladder's products (<= 1 LSB against the plain
 composite, and raising under the TF32 switches), the batched fold (exact),
 the device resampler (< 1e-4 against the host route) and the SRC stage's
@@ -232,11 +233,14 @@ def _kernel_equals_plain(cur, ref, search, metric):
 @pytest.mark.parametrize("geom", [(96, 128, 64), (120, 128, 32), (48, 80, 64),
                                   (64, 64, 16), (1080, 1920, 64),
                                   (2160, 3840, 64), (1080, 1918, 64),
-                                  (360, 640, 128), (130, 70, 100)],
+                                  (360, 640, 128), (130, 70, 100),
+                                  (96, 128, 48), (1080, 1920, 48)],
                          ids=lambda g: "x".join(map(str, g)))
 def test_motion_kernel_matches_plain_on_card(card, geom, metric):
     """Clamped windows at every edge; 4K; a width that is not a multiple
-    of 16 (rows not 4-byte aligned); searches of several staged chunks."""
+    of 16 (rows not 4-byte aligned); searches of several staged chunks;
+    search 48, where the u8 emit's float32 table differs from the float64
+    oracles' (both sides read the one table)."""
     h, w, search = geom
     cur, ref = _frames(np.random.default_rng(h + w + search), h, w, card)
     _kernel_equals_plain(cur, ref, search, metric)
@@ -251,32 +255,81 @@ def test_motion_kernel_ties_match_plain_on_card(card, kind, metric):
 
 @pytest.mark.parametrize("metric", motion.METRICS)
 @pytest.mark.parametrize("geom", [(96, 128, 64), (144, 192, 62), (96, 112, 64),
-                                  (80, 96, 30), (1080, 1920, 64),
-                                  (2160, 3840, 64)],
+                                  (80, 96, 30), (96, 192, 60), (160, 224, 128),
+                                  (1080, 1920, 64), (2160, 3840, 64),
+                                  (2160, 3840, 62)],
                          ids=lambda g: "x".join(map(str, g)))
 def test_pyramid_kernels_match_plain_on_card(card, geom, metric):
-    """The two-stage search: K5's coarse mode at both strides against
+    """The two-stage search: the coarse stage at both strides against
     ``me_coarse_torch`` (search 62 puts the dx grid on odd tx at the left
-    edge; 112 columns take the stride-1 grid), the refine kernel against
-    ``refine_torch`` around the same coarse vectors, and the whole pyramid
-    against its plain version in exactly two launches."""
+    edge, 60 shifts the left groups' bands by 2 bytes, 128 takes three
+    chunks a row; 112 columns take the stride-1 grid), the refine kernel
+    against ``refine_torch`` around the same coarse vectors, and the whole
+    pyramid against its plain version in exactly two launches: the
+    stride's coarse kernel and the refine."""
     h, w, search = geom
     cur, ref = _frames(np.random.default_rng(h * w + search), h, w, card)
-    for stride in (1, 2):
-        assert torch.equal(motion.me_coarse(cur, ref, 16, search, stride),
-                           motion.me_coarse_torch(cur, ref, 16, search, stride))
-    for refine in (1, 2):
-        raw = motion.me_coarse(cur, ref, 16, search, motion.coarse_stride(w))
-        assert torch.equal(
-            motion.me_refine(cur, ref, raw, 16, search, refine, metric),
-            motion.refine_torch(cur, ref, raw, 16, search, refine, metric))
+    _coarse_and_refine_equal_plain(cur, ref, search)
+    stride = motion.coarse_stride(w)
     before = dict(motion.route_launches)
     got = motion.me_fullsearch_pyramid(cur, ref, 16, search, 2, metric)
     assert {k: n - before[k] for k, n in motion.route_launches.items()
-            if n != before[k]} == {motion.COARSE_KERNEL: 1,
+            if n != before[k]} == {motion.COARSE_KERNELS[stride]: 1,
                                    motion.REFINE_KERNEL: 1}
     assert torch.equal(got, motion.me_fullsearch_pyramid_torch(
         cur, ref, 16, search, 2, metric))
+
+
+def _lattice_frames(h, w, device):
+    """ref(x, y) = T[(x + y // 4) % 8, y % 16] and cur(x, y) = ref(x + 2,
+    y - 8): the vectors (2, -8) and (-2, 8) tie exactly (score and cost),
+    and the one the two-stage minimum picks lies in the coarse kernel's
+    second M tile (grid row 16) while its first tile holds the other."""
+    table = np.random.default_rng(5).integers(0, 256, (8, 16))
+    yy, xx = np.mgrid[0:h + 8, 0:w + 2]
+    big = table[(xx + yy // 4) % 8, yy % 16].astype(np.uint8)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (big[:h, 2:w + 2], big[8:h + 8, :w]))
+
+
+def _coarse_and_refine_equal_plain(cur, ref, search):
+    w = cur.shape[1]
+    for stride in (1, 2):
+        assert torch.equal(motion.me_coarse(cur, ref, 16, search, stride),
+                           motion.me_coarse_torch(cur, ref, 16, search, stride))
+    raw = motion.me_coarse(cur, ref, 16, search, motion.coarse_stride(w))
+    for refine in (1, 2):
+        for metric in motion.METRICS:
+            assert torch.equal(
+                motion.me_refine(cur, ref, raw, 16, search, refine, metric),
+                motion.refine_torch(cur, ref, raw, 16, search, refine, metric))
+
+
+@pytest.mark.parametrize("kind", ["lattice", "flat", "period4", "period8"])
+@pytest.mark.parametrize("search", [64, 62, 60])
+def test_pyramid_stages_tie_order_on_card(card, kind, search):
+    """Both stages on frames whose candidates tie exactly: the first of
+    the (score, tx, inner, ty) and (score, s) orders must win whichever
+    warp or lane holds it."""
+    cur, ref = (_lattice_frames(96, 192, card) if kind == "lattice"
+                else _tie_frames(kind, 96, 192, card))
+    _coarse_and_refine_equal_plain(cur, ref, search)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 13])
+def test_pyramid_stages_on_offset_buffers_on_card(card, offset):
+    """Frames that are contiguous views starting ``offset`` bytes into
+    their storage: the stages load whole 16-byte granules clamped into the
+    frame's buffer, so the first and last granules straddle its ends."""
+    h, w = 96, 192
+    cur0, ref0 = _frames(np.random.default_rng(offset), h, w, card)
+    views = []
+    for plane, extra in ((cur0, offset), (ref0, offset + 5)):
+        buf = torch.zeros(h * w + 32, dtype=torch.uint8, device=card)
+        buf[extra:extra + h * w] = plane.reshape(-1)
+        views.append(buf[extra:extra + h * w].view(h, w))
+    assert all(v.is_contiguous() and v.data_ptr() % 16 for v in views)
+    _coarse_and_refine_equal_plain(*views, 60)
 
 
 @pytest.mark.parametrize("metric", motion.METRICS)

@@ -81,7 +81,8 @@ def test_ssd_matches_pallas_interpret():
 def test_tables_match_the_jax_kernels():
     """Cost tables built on the host in float64 and rounded once to float32,
     bit for bit the JAX kernels' tables; the u8 MV channel as the oracle
-    rounds it."""
+    rounds it at search 64, where its float32 emit (the JAX device
+    routes', ``tests/test_torch_motion_grid.py``) agrees."""
     d_lo, cost2, axis, mv_u8 = motion.tables(16, 64)
     geom = jax_motion._pallas_geometry(96, 256, 16, 64)
     assert d_lo == geom["d_lo"]

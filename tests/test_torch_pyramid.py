@@ -128,18 +128,19 @@ def test_coarse_stage_equals_jax_program(geom):
 
 @pytest.mark.parametrize("search", [30, 60, 62, 64])
 def test_pyramid_mv_table_equals_jax_emit(search):
-    """The pyramid's u8 channel of every clamped component is the JAX
-    ``_mv_rgba``'s (float32).  At search 30 and 60 it differs from
-    ``tables``' float64 channel (the oracles'), so the refine keeps its
-    own."""
+    """The u8 channel the refine emits, ``tables``' (the one table of every
+    route), is the JAX ``_mv_rgba``'s (float32) for every clamped
+    component.  At search 30 and 60 it differs from the float64 rounding of
+    the oracles."""
     import jax.numpy as jnp
     max_mv = search // 2
     m = jnp.arange(-max_mv, max_mv + 1, dtype=jnp.float32)
     want = np.asarray(jax_motion._mv_rgba(m, m, search, jnp))[:, 0]
-    got = motion.pyramid_mv_u8(search)
+    got = motion.tables(16, search)[3]
     assert np.array_equal(got, want)
-    assert (search in (30, 60)) == (not np.array_equal(
-        got, motion.tables(16, search)[3]))
+    f64 = np.clip(np.rint((np.arange(-max_mv, max_mv + 1) / max_mv * 0.5
+                           + 0.5) * 255.0), 0, 255).astype(np.uint8)
+    assert (search in (30, 60)) == (not np.array_equal(got, f64))
 
 
 def test_fallback_geometries_equal_jax():
