@@ -50,7 +50,14 @@ started together) and drives the port's paths at full size:
   pyramid's call beside exhaustive K5's and K4's;
 * packed 4:2:2 (phase 18): yuvs and zvuy cameras onto a y420p canvas through
   ``registry.composite_frame`` and a VideoMixer tick (unpacked to y422p, one
-  frame-kernel launch, 0 LSB against the plain version) and a yuvs target;
+  frame-kernel launch, 0 LSB against the plain version), and yuvs and zvuy
+  targets (unpacked, one frame-kernel launch as y422p, packed again, no
+  plain call);
+* 4:2:2 and 4:4:4 targets (phase 24): the live stack onto y422p and y444p
+  at 1920x1080, 642x362 and 1918x1078 (0 LSB against the plain version),
+  the Composer for 60 y422p and 30 y444p ticks (one frame-kernel launch a
+  tick, no plain call), and the times of both targets and of a yuvs / zvuy
+  canvas through the registry at 1080p;
 * the codec-fed station (phase 19): a SyntheticSource of uncompressed 1080p
   frames and one of 44.1 kHz s16 audio through the transcoders (the audio
   SRC on the device route, segmented to 1024 samples), the Composer with an
@@ -934,8 +941,8 @@ def pyramid_phase(dev, ctx, smi, luma_sample):
 def packed_phase(dev, ctx, rng):
     """Phase 18: packed 4:2:2 (yuvs, zvuy) cameras onto a y420p canvas
     through ``registry.composite_frame`` and a VideoMixer tick (K1, 0 LSB
-    against the plain version), and a yuvs target (the plain fold as
-    y422p, packed again)."""
+    against the plain version), and yuvs and zvuy targets (unpacked, one K1
+    launch as y422p, packed again; no plain call)."""
     from swiftvideo_tpu_torch.core import EventBox, StepClock, TimePoint, Tx
     from swiftvideo_tpu_torch.media import PixelFormat, create_picture_sample
     from swiftvideo_tpu_torch.media.pixel import (packed422_to_planar,
@@ -1001,23 +1008,132 @@ def packed_phase(dev, ctx, rng):
                             .astype(np.uint8)).to(dev)
     srcs = [([packed], PixelFormat.zvuy, rect_uniforms(
         (W, H), (W, H), x=0.5, y=0.25, w=960, h=540, opacity=0.7))]
-    frame.launches = composite.calls = 0
-    got = registry.composite_frame(ctx, PixelFormat.yuvs, (W, H), srcs,
-                                   target=[base])
-    planar = composite.composite_stack_torch(
-        PixelFormat.y422p, (W, H),
-        [([t.contiguous() for t in packed422_to_planar(
-            packed, PixelFormat.zvuy, torch)], PixelFormat.y422p, srcs[0][2])],
-        dev, target=[t.contiguous() for t in packed422_to_planar(
-            base, PixelFormat.yuvs, torch)])
-    err, above = max_err(got, [planar_to_packed422(planar, PixelFormat.yuvs,
-                                                   torch)])
-    if (err > LSB or above or frame.launches
-            or tuple(got[0].shape) != (H, W, 2) or not got[0].is_cuda):
-        fail(f"yuvs target: err {err}, {frame.launches} K1 launches")
-    parts.append(f"yuvs target (plain fold as y422p on the card): err {err} "
-                 f"above0 {above}")
+    for out_fmt in (PixelFormat.yuvs, PixelFormat.zvuy):
+        frame.launches = composite.calls = 0
+        got = registry.composite_frame(ctx, out_fmt, (W, H), srcs,
+                                       target=[base])
+        torch.cuda.synchronize()
+        k1, plain_calls = frame.launches, composite.calls
+        planar = composite.composite_stack_torch(
+            PixelFormat.y422p, (W, H),
+            [([t.contiguous() for t in packed422_to_planar(
+                packed, PixelFormat.zvuy, torch)], PixelFormat.y422p,
+              srcs[0][2])],
+            dev, target=[t.contiguous() for t in packed422_to_planar(
+                base, out_fmt, torch)])
+        err, above = max_err(got, [planar_to_packed422(planar, out_fmt,
+                                                       torch)])
+        if (err > LSB or above or (k1, plain_calls) != (1, 0)
+                or tuple(got[0].shape) != (H, W, 2) or not got[0].is_cuda):
+            fail(f"{out_fmt.value} target: err {err}, {k1} K1 launches, "
+                 f"{plain_calls} plain composites")
+        parts.append(f"{out_fmt.value} target (K1 as y422p between unpack and "
+                     f"pack): {k1} K1 launch, {plain_calls} plain, err {err} "
+                     f"above0 {above}")
     print("[18 packed 4:2:2, tol 0 LSB] " + "; ".join(parts), flush=True)
+
+
+# phase 24: the 4:2:2 and 4:4:4 targets (y422p, y444p; yuvs and zvuy fold as
+# y422p): the live stack at these sizes, 642x362 and 1918x1078 for ragged
+# chroma rows (a 321-byte 4:2:2 row) and runs; the Composer's ticks
+YUV_TARGET_SIZES = ((W, H), (642, 362), (1918, 1078))
+YUV_TARGET_TICKS = (("y422p", 60), ("y444p", 30))
+
+
+def scaled_stack(cam_srcs, ov_srcs, size):
+    """The live stack's planes placed on a ``size`` canvas: the cameras
+    into its quadrants, the lower third across its width."""
+    from swiftvideo_tpu_torch.ops.uniforms import rect_uniforms
+    w, h = size
+    ov_h = OV_H * h / H
+    cams = [(planes, fmt, rect_uniforms((W, H), size, x=(s % 2) * w / 2,
+                                        y=(s // 2) * h / 2, w=w / 2, h=h / 2,
+                                        opacity=0.9))
+            for s, (planes, fmt, _u) in enumerate(cam_srcs)]
+    ovs = [(planes, fmt, rect_uniforms((W, OV_H), size, x=0,
+                                       y=h - ov_h - 40 * h / H, w=w, h=ov_h))
+           for planes, fmt, _u in ov_srcs]
+    return cams + ovs
+
+
+def yuv_targets_phase(dev, ctx, smi, cam_srcs, ov_srcs, drive_composer):
+    """Phase 24: K1+K2 onto y422p and y444p targets against the plain
+    version at 0 LSB (three sizes), the Composer onto those canvases (one K1
+    launch a tick, no plain call), and the 1080p times of both targets and
+    of a packed canvas through the registry.  Returns the two kernel rows."""
+    from swiftvideo_tpu_torch.media import PixelFormat
+    from swiftvideo_tpu_torch.ops import composite, frame, registry
+    parts, errs = [], {}
+    for size in YUV_TARGET_SIZES:
+        srcs = scaled_stack(cam_srcs, ov_srcs, size)
+        for fmt in (PixelFormat.y422p, PixelFormat.y444p):
+            frame.launches = composite.calls = 0
+            got = frame.composite_frame_cuda(size, srcs, fmt)
+            torch.cuda.synchronize()
+            k1, plain_calls = frame.launches, composite.calls
+            ref = composite.composite_stack_torch(fmt, size, srcs, dev)
+            err, above = max_err(got, ref)
+            shapes = [tuple(p.shape) for p in got]
+            cw = size[0] // 2 if fmt == PixelFormat.y422p else size[0]
+            if (err > LSB or above or (k1, plain_calls) != (1, 0)
+                    or shapes != [(size[1], size[0])] + [(size[1], cw)] * 2):
+                fail(f"K1+K2 {fmt.value} {size}: err {err} ({above} px), "
+                     f"{k1} K1 launches, {plain_calls} plain, planes {shapes}")
+            errs[fmt] = max(errs.get(fmt, 0), err)
+            parts.append(f"{fmt.value} {size[0]}x{size[1]} err {err} above0 "
+                         f"{above}")
+    print(f"[24 K1+K2 onto 4:2:2 / 4:4:4 targets, tol {LSB} LSB] "
+          + "; ".join(parts), flush=True)
+
+    launches, parts = {}, []
+    for name, ticks in YUV_TARGET_TICKS:
+        fmt = PixelFormat(name)
+        frames, _audio, n, plain_calls, steps, wall, err, above = \
+            drive_composer(fmt, ticks)
+        cw = W // 2 if fmt == PixelFormat.y422p else W
+        if [tuple(p.shape) for p in frames[-1].planes()] != [(H, W)] + [
+                (H, cw)] * 2:
+            fail(f"{name} Composer frame planes "
+                 f"{[tuple(p.shape) for p in frames[-1].planes()]}")
+        launches[fmt] = n
+        parts.append(f"{name}: {len(frames)} ticks in {wall:.2f} s host wall "
+                     f"({steps} clock steps), K1 launches {n}, plain "
+                     f"composites {plain_calls}, last frame vs plain err {err} "
+                     f"above0 {above}")
+    print("[24 Composer onto 4:2:2 / 4:4:4 canvases] " + "; ".join(parts),
+          flush=True)
+
+    full = cam_srcs + ov_srcs
+    rows, parts = [], []
+    for fmt in (PixelFormat.y422p, PixelFormat.y444p):
+        def call(fmt=fmt):
+            return frame.composite_frame_cuda((W, H), full, fmt)
+
+        t = {"call": timed_ms(call), "device": device_ms(call, frame.YUV_KERNEL),
+             "host": host_us(call),
+             "plain": timed_ms(lambda fmt=fmt: composite.composite_stack_torch(
+                 fmt, (W, H), full, dev), batch=2)}
+        bms, by = bound(frame_bytes((W, H), full, fmt), 0, 1.0)
+        parts.append(f"{fmt.value}: call {t['call']:.4f} device "
+                     f"{t['device']:.4f} host {t['host']:.1f} us plain "
+                     f"{t['plain']:.4f} bound {bms:.6f} ({by}) share "
+                     f"{bms / t['device']:.1%}")
+        rows.append({"name": f"frame_composite (K1+K2 -> {fmt.value})",
+                     "route": "cuda",
+                     "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
+                     "replaces": REPLACES["K1"], "launches": launches[fmt],
+                     "max_abs_err": errs[fmt], "ms": t["call"],
+                     "device_ms": t["device"], "host_us": t["host"],
+                     "plain_ms": t["plain"], "bound_ms": bms, "bound_by": by,
+                     "library_ms": None})
+    for fmt in (PixelFormat.yuvs, PixelFormat.zvuy):
+        ms = timed_ms(lambda fmt=fmt: registry.composite_frame(
+            ctx, fmt, (W, H), full))
+        parts.append(f"{fmt.value} via the registry (unpack, K1 as y422p, "
+                     f"pack): call {ms:.4f}")
+    print("[24 timings, ms per 1080p tick of the live stack] "
+          + "; ".join(parts) + f" | {smi}", flush=True)
+    return rows
 
 
 def codec_station(device, host_cams, ov_rgba, pcm):
@@ -2367,6 +2483,8 @@ def main() -> None:
               f"({me_bounds[k][1]}) share {me_bounds[k][0] / dev_ms[k]:.1%}"
               for k in me_bounds) + f" | {smi}", flush=True)
 
+    yuv_rows = yuv_targets_phase(dev, ctx, smi, cam_srcs, ov_srcs,
+                                 drive_composer)
     wall_k1 = batch_phases(dev, smi, rng)
     pyramid_rows = pyramid_phase(dev, ctx, smi, luma_sample)
     packed_phase(dev, ctx, rng)
@@ -2401,6 +2519,7 @@ def main() -> None:
                         "device_ms": dev_ms[(key, res)],
                         "plain_ms": plain[(key, res)],
                         "bound_ms": bms, "bound_by": by, "library_ms": None})
+    kernels.extend(yuv_rows)
     kernels.append(wall_k1)
     kernels.extend(pyramid_rows)
     kernels.extend(net_rows)

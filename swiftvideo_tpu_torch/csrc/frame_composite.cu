@@ -1,13 +1,16 @@
-// Whole-frame z-ordered composite onto a yuv 4:2:0 or an RGBA / BGRA target, for
-// Hopper (sm_90a).
+// Whole-frame z-ordered composite onto a planar yuv (4:2:0, 4:2:2, 4:4:4), nv12 /
+// nv21 or an RGBA / BGRA target, for Hopper (sm_90a).
 //
 // Replaces the JAX package's three TPU frame kernels:
 //   swiftvideo_tpu/ops/pallas_frame.py::_frame_kernel         (planar-yuv / nv12 / nv21 sources)
 //   swiftvideo_tpu/ops/pallas_frame.py::_frame_kernel_rgba    (RGBA / BGRA overlays)
 //   swiftvideo_tpu/ops/pallas_frame.py::_frame_kernel_rgbaout (RGBA / BGRA targets)
 // and computes what they compute: golden.composite_stack (swiftvideo_tpu/ops/golden.py)
-// for y420p, nv12, nv21, RGBA and BGRA targets.  frame_composite_kernel writes the yuv
-// targets (K1 + K2), frame_composite_rgba_kernel the RGBA / BGRA ones (K3).
+// for y420p, y422p, y444p, nv12, nv21, RGBA and BGRA targets (the TPU kernels take
+// y420p, nv12 and nv21 of the yuv ones).  frame_composite_kernel writes the yuv targets
+// (K1 + K2), frame_composite_rgba_kernel the RGBA / BGRA ones (K3).  A yuv target's
+// chroma grid comes with the launch (FrameParams ch, cw): golden's masks and sampling
+// are defined on each plane's own grid, so only the tiles and the stores know it.
 //
 // Bound: device memory.  A 4-camera 1080p tick with a 1080p-wide overlay reads
 // 4 x 3.11 MB of camera planes and 1.66 MB of RGBA and writes 3.11 MB of y420p
@@ -99,7 +102,8 @@ struct FrameParams {
   int h, w;                   // target size
   int out_fmt;                // OutFmt
   int chained;                // 0: start from the cleared frame; 1: from the outputs
-  int pad[5];
+  int ch, cw;                 // a yuv target's chroma grid (rows, columns)
+  int pad[3];
   SrcDesc src[kCapacity];
 };
 static_assert(sizeof(FrameParams) == 64 + kCapacity * 192,
@@ -217,7 +221,7 @@ __device__ __forceinline__ int tiles_of(int gh, int gw) {
 }
 
 __device__ __forceinline__ int tile_count(const FrameParams& p, bool rgba) {
-  return rgba ? tiles_of(p.h, p.w) : tiles_of(p.h, p.w) + tiles_of(p.h / 2, p.w / 2);
+  return rgba ? tiles_of(p.h, p.w) : tiles_of(p.h, p.w) + tiles_of(p.ch, p.cw);
 }
 
 // Tile t: a yuv target's luma tiles, then its chroma tiles; an RGBA target's tiles.
@@ -232,8 +236,8 @@ __device__ __forceinline__ Tile tile_at(const FrameParams& p, bool rgba, int t) 
     if (t >= luma) {
       t -= luma;
       g.grid = kChroma;
-      g.gh = p.h / 2;
-      g.gw = p.w / 2;
+      g.gh = p.ch;
+      g.gw = p.cw;
       across = (g.gw + kTileW - 1) / kTileW;
     }
   }
@@ -880,9 +884,10 @@ int resident_blocks(Kernel kernel, int which) {
 }  // namespace
 
 // One launch: params points to a host FrameParams (ops/frame.py pack_params), copied
-// into the launch's parameters.  out_fmt 0: out[0] = Y, out[1] = Cb, out[2] = Cr;
-// 1 / 2: out[0] = Y, out[1] = interleaved nv12 / nv21 chroma; 3 / 4: out[0] =
-// interleaved [h, w, 4] RGBA / BGRA.  Launches on `stream` of card `device` as many
+// into the launch's parameters.  out_fmt 0: out[0] = Y, out[1] = Cb, out[2] = Cr, the
+// chroma planes [ch, cw] (y420p, y422p or y444p); 1 / 2: out[0] = Y, out[1] =
+// interleaved nv12 / nv21 chroma [ch, cw, 2]; 3 / 4: out[0] = interleaved [h, w, 4]
+// RGBA / BGRA (ch, cw unused).  Launches on `stream` of card `device` as many
 // blocks as the card holds at once (at most one per tile) and returns
 // cudaGetLastError(); the calling thread's current device is left as it was.
 extern "C" int sv_frame_composite(const void* params, int device, void* stream) {
@@ -898,7 +903,7 @@ extern "C" int sv_frame_composite(const void* params, int device, void* stream) 
     const int grid = min(tiles, resident_blocks(frame_composite_rgba_kernel, 1));
     frame_composite_rgba_kernel<<<grid, block, 0, st>>>(p);
   } else {
-    const int tiles = host_tiles(p.h, p.w) + host_tiles(p.h / 2, p.w / 2);
+    const int tiles = host_tiles(p.h, p.w) + host_tiles(p.ch, p.cw);
     const int grid = min(tiles, resident_blocks(frame_composite_kernel, 0));
     frame_composite_kernel<<<grid, block, 0, st>>>(p);
   }

@@ -8,10 +8,10 @@ per-revision sample maps (fresh frames win; the previous generation repeats
 a source's last frame when no new one arrived — mix.video.swift:105-114),
 z-sorts them, and composites the whole frame in one call.
 
-On a cuda context (the default) with a y420p / nv12 / nv21 / RGBA / BGRA
-target that call is one launch of the frame kernel (ops/frame.py); a
-y422p / y444p target, and a cpu context, take the plain torch version
-(ops/composite.py).  Emitted frames
+On a cuda context (the default) that call is one launch of the frame
+kernel (ops/frame.py) for any yuv (packed 4:2:2 through y422p) or RGBA /
+BGRA target, chained launches past ``frame.CAPACITY`` sources; a cpu
+context takes the plain torch version (ops/composite.py).  Emitted frames
 hold tensors on the context's device (``BufferType.gpu`` on the card).  pts
 comes from the clock tick, never from device completion.
 """

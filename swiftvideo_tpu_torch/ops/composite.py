@@ -4,9 +4,8 @@ This is ``swiftvideo_tpu/ops/golden.py`` (clear, z-ordered fold,
 ``bilinear_norm`` clamp-to-edge sampling, border / element / texture masks,
 family A and family B blends, u8 quantize after every source) written as
 whole-grid torch ops on an explicit device.  It is the reference the
-frame kernel (ops/frame.py) is held against, the CPU path of the port, and
-on the card the route for targets the kernel does not take (y422p,
-y444p, and packed 4:2:2 targets, which fold as y422p).
+frame kernel (ops/frame.py) is held against and the CPU path of the port;
+on the card no composite takes it.
 
 Bit-exactness with golden rests on doing the same float32 operations in
 the same order, each rounded on its own:

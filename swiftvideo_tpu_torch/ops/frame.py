@@ -1,7 +1,8 @@
 """Whole-frame composite on the card: the hand-written Hopper kernels.
 
 ``composite_frame_cuda`` composites every z-sorted source of a frame onto a
-y420p / nv12 / nv21 or RGBA / BGRA target with ``csrc/frame_composite.cu``.
+y420p / y422p / y444p / nv12 / nv21 or RGBA / BGRA target with
+``csrc/frame_composite.cu``; the launch carries the target's chroma grid.
 It replaces the three TPU frame kernels of the JAX package,
 ``pallas_frame.py::_frame_kernel`` (planar-yuv sources),
 ``::_frame_kernel_rgba`` (RGBA/BGRA overlays) and
@@ -49,7 +50,8 @@ launches = 0
 YUV_KERNEL, RGBA_KERNEL = "frame_composite_kernel", "frame_composite_rgba_kernel"
 kernel_launches = {YUV_KERNEL: 0, RGBA_KERNEL: 0}
 
-KERNEL_TARGETS = (PixelFormat.y420p, PixelFormat.nv12, PixelFormat.nv21,
+KERNEL_TARGETS = (PixelFormat.y420p, PixelFormat.y422p, PixelFormat.y444p,
+                  PixelFormat.nv12, PixelFormat.nv21,
                   PixelFormat.RGBA, PixelFormat.BGRA)
 
 SOURCE = nvcc.CSRC / "frame_composite.cu"
@@ -64,14 +66,15 @@ assert _DESC.itemsize == 192
 # FrameParams: the 64-byte header, then CAPACITY SrcDesc rows
 _HEADER = np.dtype([("out", "<u8", 3), ("n", "<i4"), ("h", "<i4"),
                     ("w", "<i4"), ("out_fmt", "<i4"), ("chained", "<i4"),
-                    ("pad", "<i4", 5)])
+                    ("ch", "<i4"), ("cw", "<i4"), ("pad", "<i4", 3)])
 assert _HEADER.itemsize == 64
 _PARAMS = np.dtype([("head", _HEADER), ("src", _DESC, CAPACITY)])
 
 _SRC_CODES = {PixelFormat.y420p: 0, PixelFormat.y422p: 0, PixelFormat.y444p: 0,
               PixelFormat.nv12: 1, PixelFormat.nv21: 2,
               PixelFormat.RGBA: 3, PixelFormat.BGRA: 4}
-_OUT_CODES = {PixelFormat.y420p: 0, PixelFormat.nv12: 1, PixelFormat.nv21: 2,
+_OUT_CODES = {PixelFormat.y420p: 0, PixelFormat.y422p: 0, PixelFormat.y444p: 0,
+              PixelFormat.nv12: 1, PixelFormat.nv21: 2,
               PixelFormat.RGBA: 3, PixelFormat.BGRA: 4}
 
 
@@ -136,13 +139,24 @@ def _check(sources, target, device) -> torch.device:
     return seen.pop()
 
 
+def chroma_grid(out_fmt: PixelFormat, size: Tuple[int, int]) -> Tuple[int, int]:
+    """(rows, columns) of a yuv target's chroma grid; (0, 0) for an RGBA /
+    BGRA target, which has none."""
+    if out_fmt in (PixelFormat.RGBA, PixelFormat.BGRA):
+        return 0, 0
+    ch, cw = plane_array_shape(out_fmt, size, 1)[:2]
+    return ch, cw
+
+
 @lru_cache(maxsize=1024)
-def _boxes(border: bytes, w: int, h: int) -> Tuple[Tuple[int, ...], ...]:
+def _boxes(border: bytes, h: int, w: int, ch: int,
+           cw: int) -> Tuple[Tuple[int, ...], ...]:
     """The luma- and chroma-grid boxes of one border map (the packed
-    uniforms' bytes 12:18 as float32) on a w x h target."""
+    uniforms' bytes 12:18 as float32) on an h x w luma grid and a ch x cw
+    chroma grid."""
     a, b, c, d, tx, ty = np.frombuffer(border, np.float32).tolist()
     det = a * d - b * c
-    grids = ((h, w), (h // 2, w // 2))
+    grids = ((h, w), (ch, cw))
     if not math.isfinite(det) or abs(det) < 1e-30:
         return tuple((0, gh, 0, gw) for gh, gw in grids)
     # ndc = M^-1 (border - t) at the border square's corners
@@ -165,22 +179,25 @@ def _boxes(border: bytes, w: int, h: int) -> Tuple[Tuple[int, ...], ...]:
     return tuple(boxes)
 
 
-def border_boxes(u: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+def border_boxes(u: np.ndarray, size: Tuple[int, int],
+                 out_fmt: PixelFormat) -> np.ndarray:
     """[n, 2, 4] half-open pixel boxes (y0, y1, x0, x1) on the luma and the
-    chroma grid of a ``size`` = (w, h) target, one pair per packed uniform
-    row of ``u`` ([n, 29]).  A box holds every pixel whose border
-    coordinates can fall inside [0, 1]^2, padded by 2 px against float32
-    rounding.  The kernel still tests each pixel exactly; a box only lets a
+    chroma grid (``chroma_grid``) of a ``size`` = (w, h) ``out_fmt`` target,
+    one pair per packed uniform row of ``u`` ([n, 29]).  A box holds every
+    pixel whose border coordinates can fall inside [0, 1]^2, padded by 2 px
+    against float32 rounding.  The kernel still tests each pixel exactly; a box only lets a
     tile skip a source.  Boxes are cached per border map: a live scene
     keeps its layout from frame to frame."""
     u = np.asarray(u, np.float32).reshape(-1, 29)
-    w, h = int(size[0]), int(size[1])
-    return np.array([_boxes(row[12:18].tobytes(), w, h) for row in u],
+    grids = (int(size[1]), int(size[0])) + chroma_grid(out_fmt, size)
+    return np.array([_boxes(row[12:18].tobytes(), *grids) for row in u],
                     np.int32).reshape(-1, 2, 4)
 
 
-def descriptors(size: Tuple[int, int], sources) -> np.ndarray:
-    """The kernel's per-source table (one _DESC row per source)."""
+def descriptors(size: Tuple[int, int], sources,
+                out_fmt: PixelFormat) -> np.ndarray:
+    """The kernel's per-source table (one _DESC row per source) for a
+    ``size`` ``out_fmt`` target."""
     table = np.zeros(len(sources), _DESC)
     if not sources:
         return table
@@ -195,7 +212,7 @@ def descriptors(size: Tuple[int, int], sources) -> np.ndarray:
     table["plane"] = ptrs
     table["fmt"] = codes
     table["dims"] = dims
-    table["box"] = border_boxes(u, size)
+    table["box"] = border_boxes(u, size, out_fmt)
     table["u"] = u
     return table
 
@@ -209,8 +226,8 @@ def launch_plan(n: int) -> List[Tuple[int, int]]:
 
 def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
                 rows: np.ndarray, chained: bool) -> np.ndarray:
-    """One launch's FrameParams: the target's planes and shape, and
-    ``rows`` (at most CAPACITY _DESC rows) as its sources."""
+    """One launch's FrameParams: the target's planes, shape and chroma
+    grid, and ``rows`` (at most CAPACITY _DESC rows) as its sources."""
     if len(rows) > CAPACITY:
         raise ValueError(f"{len(rows)} sources in one launch, at most "
                          f"{CAPACITY}")
@@ -221,6 +238,7 @@ def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
     head["w"], head["h"] = int(size[0]), int(size[1])
     head["out_fmt"] = _OUT_CODES[out_fmt]
     head["chained"] = int(chained)
+    head["ch"], head["cw"] = chroma_grid(out_fmt, size)
     params["src"][:len(rows)] = rows
     return params
 
@@ -231,9 +249,10 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
                          target=None) -> List[torch.Tensor]:
     """Clear (or start from ``target``'s planes) and fold ``sources`` —
     [(planes, fmt, ImageUniforms or packed [29])], z-sorted — onto a
-    ``size`` = (w, h) y420p / nv12 / nv21 / RGBA / BGRA frame.  Returns the
-    target's u8 planes on the sources' device.  ``device`` names it when
-    there are no sources."""
+    ``size`` = (w, h) y420p / y422p / y444p / nv12 / nv21 / RGBA / BGRA
+    frame (packed 4:2:2 targets go through ``registry.composite_frame``).
+    Returns the target's u8 planes on the sources' device.  ``device``
+    names it when there are no sources."""
     global launches
     if out_fmt not in KERNEL_TARGETS:
         raise ValueError(f"frame kernel writes no {out_fmt} target")
@@ -255,7 +274,7 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
     lib = build()
     kernel = RGBA_KERNEL if out_fmt in (PixelFormat.RGBA,
                                         PixelFormat.BGRA) else YUV_KERNEL
-    table = descriptors(size, sources)
+    table = descriptors(size, sources, out_fmt)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
     for a, b in launch_plan(len(sources)):

@@ -6,9 +6,10 @@ applyComputeImage :145-170), as ported by ``swiftvideo_tpu/ops/registry.py``.
 
 Kernels keep the ``img_<inFmt>_<outFmt>`` naming.  A context holds an
 explicit ``torch.device``, the card unless the caller asks for the CPU: on
-``cuda`` a composite onto a y420p / nv12 / nv21 / RGBA / BGRA target runs
-the frame kernel (ops/frame.py), a y422p / y444p target the plain torch
-version (ops/composite.py); on ``cpu`` everything runs the plain version.
+``cuda`` a composite onto any yuv (packed 4:2:2 through y422p) or RGBA /
+BGRA target runs the frame kernel (ops/frame.py) and any other target
+raises; on ``cpu`` everything runs the plain torch version
+(ops/composite.py).
 ``me_fullsearch`` / ``me_fullsearch_ssd`` run the motion search and
 ``me_fullsearch_pyramid`` the two-stage search with its defaults
 (ops/motion.py).  ``custom``
@@ -24,7 +25,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..media.picture import BufferType, ImageBuffer, PictureSample
-from ..media.pixel import PixelFormat, planes_for_format
+from ..media.pixel import PixelFormat, planar_to_packed422, planes_for_format
 
 from . import composite, frame, motion
 from .uniforms import ImageUniforms
@@ -139,16 +140,23 @@ def using_context(ctx: ComputeContext, fn) -> ComputeContext:
 def composite_frame(ctx: ComputeContext, out_fmt: PixelFormat, size,
                     sources, target=None):
     """Fold ``sources`` onto a cleared (or the given) ``out_fmt`` frame on
-    the context's device: the frame kernel where it writes the target
-    format on the card, the plain version everywhere else.  Packed 4:2:2
-    (yuvs / zvuy) sources reach the kernel unpacked to y422p; a packed
-    target folds as y422p with the plain version and is packed again."""
-    if ctx.kind == "cuda" and out_fmt in frame.KERNEL_TARGETS:
-        return frame.composite_frame_cuda(
-            size, composite.unpack_sources(sources), out_fmt,
-            device=ctx.device, target=target)
-    return composite.composite_stack_torch(out_fmt, size, sources, ctx.device,
-                                           target=target)
+    the context's device: the frame kernel on the card, the plain version
+    on the CPU.  Packed 4:2:2 (yuvs / zvuy) sources reach the kernel
+    unpacked to y422p; a packed target is unpacked, folds as y422p and is
+    packed again, by torch ops on the card.  On the card a target the
+    kernel does not write raises."""
+    if ctx.kind != "cuda":
+        return composite.composite_stack_torch(out_fmt, size, sources,
+                                               ctx.device, target=target)
+    sources = composite.unpack_sources(sources)
+    if out_fmt not in composite.PACKED_422:
+        return frame.composite_frame_cuda(size, sources, out_fmt,
+                                          device=ctx.device, target=target)
+    if target is not None:
+        target = composite._unpack(target[0], out_fmt)
+    planes = frame.composite_frame_cuda(size, sources, PixelFormat.y422p,
+                                        device=ctx.device, target=target)
+    return [planar_to_packed422(planes, out_fmt, torch)]
 
 
 def to_device(planes, device: torch.device):

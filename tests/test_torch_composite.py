@@ -108,16 +108,16 @@ def _fmt_id(fmt):
 
 @pytest.mark.parametrize("src_fmt", [PF.y420p, PF.nv12, PF.nv21, PF.RGBA,
                                      PF.BGRA], ids=_fmt_id)
-@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.nv12, PF.nv21, PF.RGBA],
-                         ids=_fmt_id)
+@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.y422p, PF.y444p, PF.nv12,
+                                     PF.nv21, PF.RGBA], ids=_fmt_id)
 def test_plain_matches_golden(out_fmt, src_fmt):
     rng = np.random.default_rng(100 + list(PF).index(src_fmt))
     srcs = _quadrants(rng, src_fmt) + [_overlay(rng)]
     _check(_plain(out_fmt, srcs), _golden(out_fmt, srcs))
 
 
-@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.nv12, PF.nv21, PF.RGBA,
-                                     PF.BGRA], ids=_fmt_id)
+@pytest.mark.parametrize("out_fmt", [PF.y420p, PF.y422p, PF.y444p, PF.nv12,
+                                     PF.nv21, PF.RGBA, PF.BGRA], ids=_fmt_id)
 def test_plain_rotated_and_fractional_scale(out_fmt):
     srcs = _odd_geometry(np.random.default_rng(7))
     _check(_plain(out_fmt, srcs), _golden(out_fmt, srcs))
@@ -197,7 +197,8 @@ def test_border_box_covers_border_mask(seed):
         rotation=rng.uniform(-3.2, 3.2),
         border=(x - 5, y - 3, rng.uniform(10, W), rng.uniform(10, H)))
     planes = [torch.from_numpy(p) for p in _planes(rng, PF.y420p, W, H)]
-    table = frame.descriptors((W, H), [(planes, PortPF.y420p, uni)])
+    table = frame.descriptors((W, H), [(planes, PortPF.y420p, uni)],
+                              PortPF.y420p)
     p = uni.pack()
     for g, (gh, gw) in enumerate(((H, W), (H // 2, W // 2))):
         border = composite._masks(p, gh, gw, CPU)[0].numpy()
@@ -212,7 +213,7 @@ def test_descriptor_table():
     srcs = interop.to_port_sources(
         [_quadrants(rng, PF.y420p)[0], _odd_geometry(rng)[1],
          _overlay(rng, PF.BGRA)], CPU)
-    table = frame.descriptors((W, H), srcs)
+    table = frame.descriptors((W, H), srcs, PortPF.y420p)
     assert table.dtype.itemsize == 192
     assert list(table["fmt"]) == [0, 1, 4]
     assert [tuple(d) for d in table["dims"]] == [

@@ -11,7 +11,7 @@ bookkeeping, and the mixing wall's plan path (<= 1 LSB) and per-cell path
 card with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerance: 0 LSB for pixels (the frame kernels are bit-exact against the
 plain version), exact for motion vectors and audio.  The frame cases cover
-both of the kernels' map paths (the row side once per run for axis-aligned
+every target the kernel writes (packed 4:2:2 through the registry), both of the kernels' map paths (the row side once per run for axis-aligned
 sources, every map per pixel for rotated ones), downscales and upscales,
 ragged runs, stacks longer than one launch and chained targets.  Imports
 only the port."""
@@ -25,7 +25,7 @@ from swiftvideo_tpu_torch.media import PixelFormat as PF
 from swiftvideo_tpu_torch.media.audio import AudioFormat, AudioSample
 from swiftvideo_tpu_torch.mix.src_audio import AudioSampleRateConversion
 from swiftvideo_tpu_torch.ops import (audio, composite, frame, matscale,
-                                      motion, resample)
+                                      motion, registry, resample)
 from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms, rect_uniforms
 from swiftvideo_tpu_torch.parallel import MixingWall
 
@@ -33,7 +33,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = 0
 CAP = frame.CAPACITY
-FMTS = [PF.y420p, PF.nv12, PF.nv21, PF.RGBA, PF.BGRA]
+FMTS = [PF.y420p, PF.y422p, PF.y444p, PF.nv12, PF.nv21, PF.RGBA, PF.BGRA]
 
 
 @pytest.fixture
@@ -108,7 +108,8 @@ def test_kernel_matches_plain_on_card(card, size, out_fmt):
                                              *size), out_fmt)
 
 
-@pytest.mark.parametrize("out_fmt", [PF.nv21, PF.BGRA, PF.y420p, PF.RGBA],
+@pytest.mark.parametrize("out_fmt", [PF.nv21, PF.BGRA, PF.y420p, PF.RGBA,
+                                     PF.y422p, PF.y444p],
                          ids=lambda f: f.value)
 def test_kernel_chained_target_on_card(card, out_fmt):
     size = (320, 180)
@@ -186,6 +187,28 @@ def test_rgba_kernel_config1_on_card(card):
     ref = composite.composite_stack_torch(PF.RGBA, (640, 360), srcs, card)
     assert got[0].shape == (360, 640, 4)
     assert int((got[0].int() - ref[0].int()).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("out_fmt", [PF.yuvs, PF.zvuy], ids=lambda f: f.value)
+def test_registry_packed_target_on_card(card, out_fmt):
+    """A packed 4:2:2 target through the registry: unpacked, one launch of
+    the frame kernel as y422p, packed again; equal to the plain version
+    (which the card path never calls), on a ragged 642x362 canvas."""
+    size = (642, 362)
+    rng = np.random.default_rng(9)
+    srcs = _scene(rng, card, *size)
+    base = torch.from_numpy(rng.integers(0, 256, (362, 642, 2), np.int64)
+                            .astype(np.uint8)).to(card)
+    ctx = registry.make_compute_context(card)
+    launches, calls = frame.launches, composite.calls
+    for target in (None, [base]):
+        got = registry.composite_frame(ctx, out_fmt, size, srcs, target=target)
+        ref = composite.composite_stack_torch(out_fmt, size, srcs, card,
+                                              target=target)
+        torch.cuda.synchronize()
+        assert got[0].is_cuda and got[0].shape == ref[0].shape == (362, 642, 2)
+        assert int((got[0].int() - ref[0].int()).abs().max()) <= TOL
+    assert (frame.launches, composite.calls) == (launches + 2, calls + 2)
 
 
 def _frames(rng, h, w, device):

@@ -92,7 +92,8 @@ def test_param_layout_matches_kernel_source():
     assert frame._PARAMS.itemsize == 64 + CAP * 192
 
 
-@pytest.mark.parametrize("out_fmt", [PortPF.y420p, PortPF.nv12, PortPF.BGRA],
+@pytest.mark.parametrize("out_fmt", [PortPF.y420p, PortPF.y422p,
+                                     PortPF.y444p, PortPF.nv12, PortPF.BGRA],
                          ids=lambda f: f.value)
 @pytest.mark.parametrize("chained", [False, True])
 def test_packed_params_match_descriptors(out_fmt, chained):
@@ -100,16 +101,19 @@ def test_packed_params_match_descriptors(out_fmt, chained):
     size = (96, 64)
     srcs = _port(_mixed_stack(rng, 5, size))
     outs = composite.clear_planes(out_fmt, size, CPU)
-    rows = frame.descriptors(size, srcs)
+    rows = frame.descriptors(size, srcs, out_fmt)
     raw = frame.pack_params(size, out_fmt, outs, rows, chained).tobytes()
     assert len(raw) == 64 + CAP * 192
-    # header: out[3] (u64), n, h, w, out_fmt, chained, pad[5] (i32)
+    # header: out[3] (u64), n, h, w, out_fmt, chained, ch, cw, pad[3] (i32)
     out_ptrs = np.frombuffer(raw, "<u8", 3, 0)
     assert list(out_ptrs) == [t.data_ptr() for t in outs] + [0] * (3 - len(outs))
-    n, h, w, fmt_code, ch = np.frombuffer(raw, "<i4", 5, 24)
-    assert (n, h, w, ch) == (5, 64, 96, int(chained))
+    n, h, w, fmt_code, chained_at = np.frombuffer(raw, "<i4", 5, 24)
+    assert (n, h, w, chained_at) == (5, 64, 96, int(chained))
     assert fmt_code == frame._OUT_CODES[out_fmt]
-    assert not any(np.frombuffer(raw, "<i4", 5, 44))
+    grid = tuple(np.frombuffer(raw, "<i4", 2, 44))
+    assert grid == ((0, 0) if out_fmt == PortPF.BGRA
+                    else tuple(outs[1].shape[:2]))
+    assert not any(np.frombuffer(raw, "<i4", 3, 52))
     # rows: SrcDesc at 64 + 192 i, field by field
     for i, (planes, fmt, uni) in enumerate(srcs):
         at = 64 + 192 * i
@@ -217,7 +221,7 @@ def test_border_boxes_equal_per_corner_loop(seed):
         ).pack())
     flat = np.zeros(29, np.float32)  # a degenerate border map: the whole grid
     u = np.stack(unis + [flat])
-    boxes = frame.border_boxes(u, (320, 180))
+    boxes = frame.border_boxes(u, (320, 180), PortPF.y420p)
     assert boxes.dtype == np.int32 and boxes.shape == (len(u), 2, 4)
     for g, (gh, gw) in enumerate(((180, 320), (90, 160))):
         for row, p in zip(boxes[:, g], u):

@@ -226,8 +226,8 @@ _UNI = rect_uniforms((32, 16), (64, 32), x=0, y=0, w=32, h=16)
                        _UNI)], {}, TypeError),
     ("cpu planes, cuda device", [(_y420p(), PixelFormat.y420p, _UNI)],
      {"device": torch.device("cuda")}, ValueError),
-    ("y422p target", [(_y420p(), PixelFormat.y420p, _UNI)],
-     {"out_fmt": PixelFormat.y422p}, ValueError),
+    ("yuvs target", [(_y420p(), PixelFormat.y420p, _UNI)],
+     {"out_fmt": PixelFormat.yuvs}, ValueError),
     ("planes do not fit format", [(_y420p()[:2], PixelFormat.y420p, _UNI)],
      {}, ValueError),
     ("packed 4:2:2 source", [([torch.zeros(16, 32, 2, dtype=torch.uint8)],

@@ -135,12 +135,10 @@ def _mixer_pictures(rng, fmt, W, H):
             cam.with_(matrix=model, revision="c", opacity=0.8)]
 
 
-@pytest.mark.parametrize("fmt", PACKED, ids=lambda f: f.value)
-def test_video_mixer_with_packed_camera_emits_frames(fmt):
-    """A VideoMixer tick with a packed camera over a y420p background emits
-    a frame (it raised and emitted none before), within 1 LSB of the JAX
-    VideoMixer's."""
-    W, H = 128, 72
+def _mixer_twin(fmt, out_fmt, W=128, H=72):
+    """One VideoMixer tick of a packed camera over a y420p background onto
+    an ``out_fmt`` canvas, in the port (cpu context) and in the JAX package;
+    returns (ours, theirs, the pictures)."""
     rng = np.random.default_rng(61)
     pics = _mixer_pictures(rng, fmt, W, H)
     duration = TimePoint(1000, 30000)
@@ -148,7 +146,7 @@ def test_video_mixer_with_packed_camera_emits_frames(fmt):
     jax_clock = StepClock(duration)
     theirs_mixer = JaxVideoMixer(jax_clock, workspace_id="w",
                                  frame_duration=duration, output_size=(W, H),
-                                 output_format=PF.y420p,
+                                 output_format=out_fmt,
                                  compute_context=jax_context("jax"),
                                  asset_id="mix")
     theirs = []
@@ -163,7 +161,7 @@ def test_video_mixer_with_packed_camera_emits_frames(fmt):
     ours_mixer = VideoMixer(port_clock, workspace_id="w",
                             frame_duration=interop.time_point(duration),
                             output_size=(W, H),
-                            output_format=interop.pixel_format(PF.y420p),
+                            output_format=interop.pixel_format(out_fmt),
                             compute_context=registry.make_compute_context("cpu"),
                             asset_id="mix")
     ours = []
@@ -173,6 +171,15 @@ def test_video_mixer_with_packed_camera_emits_frames(fmt):
         ours_mixer.apply(port_core.EventBox.just(interop.picture_sample(pic)))
     port_clock.step()
     del keep
+    return ours, theirs, pics
+
+
+@pytest.mark.parametrize("fmt", PACKED, ids=lambda f: f.value)
+def test_video_mixer_with_packed_camera_emits_frames(fmt):
+    """A VideoMixer tick with a packed camera over a y420p background emits
+    a frame (it raised and emitted none before), within 1 LSB of the JAX
+    VideoMixer's."""
+    ours, theirs, pics = _mixer_twin(fmt, PF.y420p)
     assert len(ours) == len(theirs) == 1
     assert _err(ours[0].planes(),
                 [jnp.asarray(p) for p in theirs[0].planes()]) <= TOL
@@ -180,3 +187,22 @@ def test_video_mixer_with_packed_camera_emits_frames(fmt):
     cam_luma = ours[0].planes()[0][10:50, 15:90].numpy()
     bg_luma = pics[0].planes()[0][10:50, 15:90]
     assert not np.array_equal(cam_luma, bg_luma)
+
+
+@pytest.mark.parametrize("out_fmt", [PF.y422p, PF.y444p],
+                         ids=lambda f: f.value)
+@pytest.mark.parametrize("fmt", PACKED, ids=lambda f: f.value)
+def test_video_mixer_onto_422_and_444_canvases(fmt, out_fmt):
+    """The same tick onto a y422p and a y444p canvas, within 1 LSB of the
+    JAX VideoMixer's, with the chroma planes on the canvas's own grid."""
+    W, H = 128, 72
+    ours, theirs, _pics = _mixer_twin(fmt, out_fmt, W, H)
+    assert len(ours) == len(theirs) == 1
+    assert ours[0].pixel_format() == interop.pixel_format(out_fmt)
+    cw = W // 2 if out_fmt == PF.y422p else W
+    assert [tuple(p.shape) for p in ours[0].planes()] == [(H, W), (H, cw),
+                                                          (H, cw)]
+    assert _err(ours[0].planes(),
+                [jnp.asarray(p) for p in theirs[0].planes()]) <= TOL
+    # the scene's chroma is on screen
+    assert int(ours[0].planes()[1].float().std()) > 5
