@@ -28,17 +28,20 @@ started together) and drives the port's paths at full size:
   integer tensor-core instruction, the refine kernel byte-SIMD SAD and dot
   products, and the SAD kernel's byte-SIMD opcode sets its bound;
 * the batch paths (phases 12-15): the transcode ladder (config 4, a 1080p
-  frame to 1280x720, 854x480 and 640x360 through ``matscale.scale_y420p``,
-  within 1 LSB of the plain composite; the same rungs through the frame
-  kernel are timed for comparison only), the device resampler (config 2,
-  128 channels of 44 100 samples, 44.1 -> 48 kHz, within 1e-4 of the host
-  route with equal counts), the SRC stage's device route (pts and counts
-  equal to the host route's), and the mixing wall (config 5, 64 1080p
-  streams onto a 1920x1088 canvas of 240x136 tiles with 800 stereo samples
-  each): its plan path within 1 LSB of the plain composite of every
-  stream, its per-cell path (one frame-kernel launch per stream, exactly
-  64 a tick) at 0 LSB, the audio equal to the host sum, and 60 streams on
-  the same grid (blank excess cells);
+  frame to 1280x720, 854x480 and 640x360 through ``matscale.scale_y420p``:
+  one frame-kernel launch a rung, no product or plain call, 0 LSB against
+  the plain composite), the device resampler (config 2, 128 channels of
+  44 100 samples, 44.1 -> 48 kHz, within 1e-4 of the host route with equal
+  counts), the SRC stage's device route (pts and counts equal to the host
+  route's), and the mixing wall (config 5, 64 1080p streams onto a
+  1920x1088 canvas of 240x136 tiles with 800 stereo samples each): its
+  default and per-cell ticks each one cell launch of the frame kernel per
+  32 streams (two a tick), no product or plain call, every tile 0 LSB
+  against the plain composite of its stream, the audio equal to the host
+  sum, and 60 streams on the same grid (two launches, blank excess cells).
+  The dense products, the route these paths took before, run beside them
+  as a comparison only (within 1 LSB), and ``F.grid_sample`` on the same
+  inputs is timed as the library yardstick (within 1 LSB);
 * the two-stage motion search (phase 17): ``me_fullsearch_pyramid`` at
   1080p and 4K, 16/64, refine 2, SSD through ``run_compute_kernel`` and SAD
   through its entry point, one launch of the coarse kernel (stride-2 grid)
@@ -70,11 +73,11 @@ started together) and drives the port's paths at full size:
   swiftvideo_tpu_torch mix``, one K1 launch a tick and one K3 launch a PNG,
   its PNGs byte-identical between the two and equal to the same command
   under ``SV_DEVICE=cpu``; 64 RTMP publishers into the port's server, whose
-  sessions seed the 64 1080p streams of the wall (per-cell tick: 64 K1
-  launches, each tile equal to its session's stream); ``serve --record``
-  as a child (one worker, then two) taking 16 publishers of 5 s of 1080p30
-  AVC at ~6 Mbit/s and AAC at ~128 kbit/s, every recorded file byte for
-  byte what its publisher sent; and four of those streams through a flavor
+  sessions seed the 64 1080p streams of the wall (per-cell and plan ticks:
+  two K1 launches each, each tile equal to its session's stream);
+  ``serve --record`` as a child (one worker, then two) taking 16
+  publishers of 5 s of 1080p30 AVC at ~6 Mbit/s and AAC at ~128 kbit/s,
+  every recorded file byte for byte what its publisher sent; and four of those streams through a flavor
   push, back byte-identical.  ``serve`` is host-only and runs in a child,
   so nothing forks this process after CUDA is initialised.
 
@@ -451,10 +454,55 @@ def tap_bytes(plans, in_hw, sector=32):
     return total
 
 
+def sample_grids(plan, in_hw, dev, n=1):
+    """``F.grid_sample`` grids [n, h, w, 2] of the luma and the chroma
+    planes of a y420p scale: the plan's affine ``src = a * i + b`` in texel
+    units (``matscale._plane_params_np``, float32 as the plan takes it) as
+    ``align_corners=False``'s normalised positions (2 src + 1) / n_in - 1.
+    Border padding clamps them as golden's taps clamp, so on a
+    full-coverage scale this is golden's bilinear sample up to float32
+    rounding (within 1 LSB).  A yardstick only: no path of the port calls
+    ``grid_sample``."""
+    from swiftvideo_tpu_torch.ops import matscale
+    ih, iw = in_hw
+    ow, oh = plan.out_size
+    grids = []
+    for h, w, hin, win in ((oh, ow, ih, iw),
+                           (oh // 2, ow // 2, ih // 2, iw // 2)):
+        ay, by, ax, bx = matscale._plane_params_np(plan.uniform, h, w, hin,
+                                                   win)[:4]
+        sx = (ax * np.arange(w, dtype=np.float32) + bx).astype(np.float64)
+        sy = (ay * np.arange(h, dtype=np.float32) + by).astype(np.float64)
+        g = np.empty((h, w, 2), np.float32)
+        g[..., 0] = ((2.0 * sx + 1.0) / win - 1.0)[None, :]
+        g[..., 1] = ((2.0 * sy + 1.0) / hin - 1.0)[:, None]
+        grids.append(torch.from_numpy(g)[None].expand(n, h, w, 2)
+                     .contiguous().to(dev))
+    return grids
+
+
+def grid_sample_y420p(planes, grids):
+    """The library yardstick of a y420p scale: u8 to float32, one
+    ``F.grid_sample`` (bilinear, border, ``align_corners=False``) for the
+    luma and one for cb and cr as two channels, a round and a clamp back to
+    u8.  ``planes``: [h, w] or [N, h, w] planes; ``grids``: ``sample_grids``
+    of the same N."""
+    import torch.nn.functional as F
+    y, cb, cr = planes
+    gy, gc = grids
+    kw = dict(mode="bilinear", padding_mode="border", align_corners=False)
+    luma = F.grid_sample(y.reshape(-1, 1, *y.shape[-2:]).float(), gy, **kw)
+    chroma = F.grid_sample(torch.stack((cb, cr), -3).reshape(
+        -1, 2, *cb.shape[-2:]).float(), gc, **kw)
+    out = [torch.clamp(torch.round(t), 0, 255).to(torch.uint8)
+           for t in (luma[:, 0], chroma[:, 0], chroma[:, 1])]
+    return out if y.dim() == 3 else [t[0] for t in out]
+
+
 def batch_phases(dev, smi, rng):
     """Phases 12-15: the batch paths of configs 4, 2 and 5 through the
-    port's entry points on ``dev``.  Returns the wall's per-cell K1 row
-    for the kernels line."""
+    port's entry points on ``dev``.  Returns the kernels line's rows of
+    K1 on the ladder, on one wall cell and on the wall tick."""
     from swiftvideo_tpu_torch.core import TimePoint
     from swiftvideo_tpu_torch.media import AudioFormat, AudioSample, PixelFormat
     from swiftvideo_tpu_torch.mix import AudioSampleRateConversion
@@ -479,47 +527,81 @@ def batch_phases(dev, smi, rng):
     def ladder():
         return [matscale.scale_y420p(src, p) for p in plans]
 
-    def ladder_k1():
-        return [frame.composite_frame_cuda(r, [(src, y420p, identity_uniforms(
-            (W, H), r))]) for r in LADDER_RUNGS]
+    def ladder_products():
+        return [matscale.products(*src, p) for p in plans]
 
-    frame.launches = composite.calls = 0
+    def ladder_plain():
+        return [plain_scale(src, (W, H), r) for r in LADDER_RUNGS]
+
+    lad_grids = [sample_grids(p, (H, W), dev) for p in plans]
+
+    def ladder_library():
+        return [grid_sample_y420p(src, g) for g in lad_grids]
+
+    torch.cuda.synchronize()
+    frame.launches = composite.calls = matscale.calls = 0
     outs = ladder()
-    if (frame.launches, composite.calls) != (0, 0):
-        fail(f"the ladder launched {frame.launches} frame kernels and "
-             f"{composite.calls} plain composites")
-    parts = []
-    for r, out, k1 in zip(LADDER_RUNGS, outs, ladder_k1()):
+    torch.cuda.synchronize()
+    lad_counts = (frame.launches, matscale.calls, composite.calls)
+    if lad_counts != (len(plans), 0, 0):
+        fail(f"the ladder made {lad_counts[0]} K1 launches (want "
+             f"{len(plans)}), {lad_counts[1]} product calls and "
+             f"{lad_counts[2]} plain composites")
+    parts, lad_err = [], 0
+    for r, out, dense, lib in zip(LADDER_RUNGS, outs, ladder_products(),
+                                  ladder_library()):
         want = plain_scale(src, (W, H), r)
-        err, at1 = max_err(out, want)
-        k1_err, _ = max_err(k1, want)
-        if err > 1 or k1_err > LSB or not all(
+        err, above = max_err(out, want)
+        d_err, d_at1 = max_err(dense, want)
+        l_err, l_at1 = max_err(lib, want)
+        lad_err = max(lad_err, err)
+        if err > LSB or above or d_err > 1 or l_err > 1 or not all(
                 o.device == dev and o.dtype == torch.uint8 for o in out):
-            fail(f"ladder {r}: products vs plain err {err}, K1 vs plain "
-                 f"{k1_err}")
-        parts.append(f"{r[0]}x{r[1]} err {err} ({at1} px at 1 LSB)")
+            fail(f"ladder {r}: K1 vs plain err {err} ({above} px differ), "
+                 f"products vs plain {d_err}, grid_sample vs plain {l_err}")
+        parts.append(f"{r[0]}x{r[1]} K1 err {err}, products err {d_err} "
+                     f"({d_at1} px at 1 LSB), grid_sample err {l_err} "
+                     f"({l_at1} px at 1 LSB)")
     lad_ms = timed_ms(ladder, reps=10, batch=5)
     lad_dev, lad_acts = device_total_ms(ladder)
-    lad_k1_ms = timed_ms(ladder_k1, reps=10, batch=5)
-    lad_k1_dev, _ = device_total_ms(ladder_k1)
+    lad_host = host_us(ladder)
+    prod_ms = timed_ms(ladder_products, reps=10, batch=5)
+    prod_dev, prod_acts = device_total_ms(ladder_products)
+    lad_lib_ms = timed_ms(ladder_library, reps=10, batch=5)
+    lad_lib_dev, lad_lib_acts = device_total_ms(ladder_library)
+    lad_plain_ms = timed_ms(ladder_plain, reps=3, batch=1, warmup=1)
     lad_flops = sum(scale_flops(p, (H, W)) for p in plans)
     lad_bytes = y420p_bytes(W, H) + sum(y420p_bytes(*r) for r in LADDER_RUNGS)
     lad_bound, lad_by = bound(lad_bytes, lad_flops, NONTENSOR_OPS)
     lad_taps = tap_bytes(plans, (H, W)) + sum(y420p_bytes(*r)
                                               for r in LADDER_RUNGS)
-    lad_fn, _ = bound(lad_taps, 0, 1.0)
+    lad_fn, lad_fn_by = bound(lad_taps, 0, 1.0)
     print(f"[12 ladder, config 4: {W}x{H} y420p -> {len(plans)} rungs by "
-          f"matscale.scale_y420p, tol 1 LSB vs plain] " + "; ".join(parts)
-          + f" | call {lad_ms:.4f} ms, device {lad_dev:.4f} ms "
-          f"({lad_acts:.0f} device activities a call) | dense form: "
-          f"{lad_flops / 1e9:.3f} GFLOP, {lad_bytes / 1e6:.3f} MB, bound "
-          f"{lad_bound:.4f} ms ({lad_by}), share of the dense form's bound "
-          f"{lad_bound / lad_dev:.1%} | the function: {lad_taps / 1e6:.3f} MB "
-          f"of tap sectors and targets, byte bound {lad_fn:.6f} ms, share "
-          f"{lad_fn / lad_dev:.2%} | same rungs through K1 (comparison "
-          f"only): call {lad_k1_ms:.4f} ms, device {lad_k1_dev:.4f} ms, "
-          f"share of the function's bound {lad_fn / lad_k1_dev:.1%} | {smi}",
+          f"matscale.scale_y420p, tol {LSB} LSB vs plain; the products and "
+          f"grid_sample, comparisons only, 1 LSB] " + "; ".join(parts)
+          + f" | {lad_counts[0]} K1 launches, {lad_counts[1]} product calls, "
+          f"{lad_counts[2]} plain composites | call {lad_ms:.4f} ms, device "
+          f"{lad_dev:.4f} ms ({lad_acts:.0f} device activities a call), host "
+          f"{lad_host:.1f} us | the function: {lad_taps / 1e6:.3f} MB of tap "
+          f"sectors and targets, byte bound {lad_fn:.6f} ms, share "
+          f"{lad_fn / lad_dev:.1%} | plain {lad_plain_ms:.4f} ms | "
+          f"grid_sample (library yardstick): call {lad_lib_ms:.4f} ms, device "
+          f"{lad_lib_dev:.4f} ms ({lad_lib_acts:.0f} activities) | the "
+          f"products (the route before, comparison only): call {prod_ms:.4f} "
+          f"ms, device {prod_dev:.4f} ms ({prod_acts:.0f} activities), "
+          f"{lad_flops / 1e9:.3f} GFLOP, {lad_bytes / 1e6:.3f} MB, dense "
+          f"bound {lad_bound:.4f} ms ({lad_by}), share {lad_bound / prod_dev:.1%}"
+          f", share of the function's bound {lad_fn / prod_dev:.2%} | {smi}",
           flush=True)
+    ladder_row = {
+        "name": f"frame_composite (K1: ladder, {W}x{H} -> "
+                + ", ".join(f"{w}x{h}" for w, h in LADDER_RUNGS)
+                + ", one launch a rung)",
+        "route": "cuda", "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
+        "replaces": REPLACES["K1"], "launches": lad_counts[0],
+        "max_abs_err": lad_err, "ms": lad_ms, "device_ms": lad_dev,
+        "plain_ms": lad_plain_ms, "bound_ms": lad_fn, "bound_by": lad_fn_by,
+        "library_ms": lad_lib_ms}
 
     # phase 13: the device resampler (config 2), 44.1 -> 48 kHz
     x = np.random.default_rng(13).standard_normal(
@@ -626,52 +708,71 @@ def batch_phases(dev, smi, rng):
     def tick_cells():
         return wall.step(ys, us, vs, audio_t, gains_t, uniforms=unis)
 
-    frame.launches = composite.calls = 0
-    plan_out = tick_plan()
-    torch.cuda.synchronize()
-    if (frame.launches, composite.calls) != (0, 0):
-        fail(f"wall plan path: {frame.launches} frame launches, "
-             f"{composite.calls} plain composites")
-    frame.launches = composite.calls = 0
-    cell_out = tick_cells()
-    torch.cuda.synchronize()
-    cell_launches, cell_plain = frame.launches, composite.calls
-    if (cell_launches, cell_plain) != (n, 0):
-        fail(f"wall per-cell path: {cell_launches} frame launches (want {n}),"
-             f" {cell_plain} plain composites")
-    plan_err = plan_at1 = cell_err = 0
+    def counted(fn):
+        """fn's result and (K1 launches, product calls, plain composites)
+        it made, each count set to 0 just before."""
+        torch.cuda.synchronize()
+        frame.launches = matscale.calls = composite.calls = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (frame.launches, matscale.calls, composite.calls)
+
+    tick_launches = len(frame.launch_plan(n))
+    plan_out, plan_counts = counted(tick_plan)
+    cell_out, cell_counts = counted(tick_cells)
+    for name, got in (("plan", plan_counts), ("per-cell", cell_counts)):
+        if got != (tick_launches, 0, 0):
+            fail(f"wall {name} tick: {got[0]} K1 launches (want "
+                 f"{tick_launches}), {got[1]} product calls, {got[2]} plain "
+                 f"composites")
+    # the products, the route before: a comparison only
+    dense = matscale.products(ys, us, vs, wall._plan)
+    plan_err = cell_err = dense_err = dense_at1 = 0
     for s in range(n):
         planes = [ys[s], us[s], vs[s]]
-        e, at1 = max_err(cells(plan_out, s), plain_scale(planes, (W, H),
-                                                         (tw, th)))
-        plan_err, plan_at1 = max(plan_err, e), plan_at1 + at1
+        want = plain_scale(planes, (W, H), (tw, th))
+        plan_err = max(plan_err, max_err(cells(plan_out, s), want)[0])
+        e, at1 = max_err([d[s] for d in dense], want)
+        dense_err, dense_at1 = max(dense_err, e), dense_at1 + at1
         e, _ = max_err(cells(cell_out, s), plain_scale(planes, (W, H),
                                                        (tw, th), unis[s]))
         cell_err = max(cell_err, e)
     audio_ok = all(np.array_equal(o[3].cpu().numpy(), want_audio)
                    for o in (plan_out, cell_out))
-    if plan_err > 1 or cell_err > LSB or not audio_ok:
-        fail(f"wall: plan path err {plan_err}, per-cell err {cell_err}, "
-             f"audio equal {audio_ok}")
+    if plan_err > LSB or cell_err > LSB or dense_err > 1 or not audio_ok:
+        fail(f"wall: plan tick err {plan_err}, per-cell tick err {cell_err}, "
+             f"products err {dense_err}, audio equal {audio_ok}")
     # 60 streams on the same 8x8 grid: the blank-fill assembly
     n60 = n - 4
     wall60 = MixingWall(n_streams=n60, stream_size=(W, H),
                         canvas_size=WALL_CANVAS, audio_samples=WALL_SAMPLES,
                         device=dev)
-    out60 = wall60.step(ys[:n60], us[:n60], vs[:n60], audio_t[:n60],
-                        gains_t[:n60])
+    out60, counts60 = counted(lambda: wall60.step(
+        ys[:n60], us[:n60], vs[:n60], audio_t[:n60], gains_t[:n60]))
     same = all(torch.equal(a, b) for s in range(n60)
                for a, b in zip(cells(out60, s), cells(plan_out, s)))
     blank = all(int(c[0].max()) == 0 and all(bool((p == 128).all())
                                              for p in c[1:])
                 for s in range(n60, n) for c in [cells(out60, s)])
-    if wall60.aligned or not (same and blank):
+    if (wall60.aligned or not (same and blank)
+            or counts60 != (len(frame.launch_plan(n60)), 0, 0)):
         fail(f"wall of {n60}: aligned {wall60.aligned}, tiles equal {same}, "
-             f"excess cells blank {blank}")
+             f"excess cells blank {blank}, (K1 launches, product calls, "
+             f"plain composites) {counts60}")
     plan_ms = timed_ms(tick_plan, reps=10, batch=3)
     plan_dev, plan_acts = device_total_ms(tick_plan, n=10)
-    cell_ms = timed_ms(tick_cells, reps=5, batch=2, warmup=1)
-    cell_dev, cell_acts = device_total_ms(tick_cells, n=5)
+    cell_ms = timed_ms(tick_cells, reps=10, batch=3)
+    cell_dev, cell_acts = device_total_ms(tick_cells, n=10)
+    tick_host = host_us(tick_plan, n=20)
+
+    def tick_products():
+        # the plan tick before the cell launch: the products, then the
+        # same assembly and audio
+        tiles = matscale.products(ys, us, vs, wall._plan)
+        return wall._assemble(tiles) + (wall._mix_audio(audio_t, gains_t),)
+
+    prod_ms = timed_ms(tick_products, reps=10, batch=3)
+    prod_dev, prod_acts = device_total_ms(tick_products, n=10)
     wall_flops = n * scale_flops(wall._plan, (H, W))
     wall_bytes = n * (y420p_bytes(W, H) + 2 * 2 * WALL_SAMPLES) \
         + y420p_bytes(*WALL_CANVAS) + 2 * 2 * WALL_SAMPLES
@@ -680,42 +781,123 @@ def batch_phases(dev, smi, rng):
     # the audio in and out; both paths compute it
     cell_taps = tap_bytes([wall._plan], (H, W))
     wall_taps = wall_bytes - n * y420p_bytes(W, H) + n * cell_taps
-    cell_bound, cell_by = bound(wall_taps, 0, 1.0)
+    tick_bound, _ = bound(wall_taps, 0, 1.0)
+
+    # the cell launch alone, on the plan tick's sources (identity cells),
+    # beside its plain version and the library yardstick
+    stack_unis = np.broadcast_to(wall._identity, (n, 29))
+
+    def stack_call():
+        return frame.composite_cells_cuda((tw, th), [ys, us, vs], y420p,
+                                          stack_unis)
+
+    wall_grids = sample_grids(wall._plan, (H, W), dev, n)
+
+    def stack_library():
+        return grid_sample_y420p([ys, us, vs], wall_grids)
+
+    stack, lib = stack_call(), stack_library()
+    stack_err = lib_err = lib_at1 = 0
+    for s in range(n):
+        want = plain_scale([ys[s], us[s], vs[s]], (W, H), (tw, th))
+        stack_err = max(stack_err, max_err(
+            [t[s * r:(s + 1) * r] for t, r in zip(stack, (th, th // 2,
+                                                          th // 2))],
+            want)[0])
+        e, at1 = max_err([t[s] for t in lib], want)
+        lib_err, lib_at1 = max(lib_err, e), lib_at1 + at1
+    if stack_err > LSB or lib_err > 1:
+        fail(f"the wall's {n} identity cells: the cell launch alone err "
+             f"{stack_err}, grid_sample err {lib_err} vs plain")
+    stack_ms = timed_ms(stack_call)
+    stack_dev, stack_acts = device_total_ms(stack_call)
+    # the tick's host work: the cell wrapper, and its numpy table alone
+    stack_host = host_us(stack_call, n=20)
+    table_host = host_us(lambda: frame.cell_descriptors(
+        (tw, th), [ys, us, vs], y420p, stack_unis), n=20)
+    stack_lib_ms = timed_ms(stack_library, reps=10, batch=3)
+    stack_lib_dev, stack_lib_acts = device_total_ms(stack_library, n=10)
+    stack_srcs = [([ys[i], us[i], vs[i]], y420p, wall._identity)
+                  for i in range(n)]
+    stack_plain_ms = timed_ms(lambda: composite.composite_cells_torch(
+        (tw, th), stack_srcs, dev), reps=3, batch=1, warmup=1)
+    stack_bms, stack_by = bound(n * (cell_taps + y420p_bytes(tw, th)), 0, 1.0)
     print(f"[15 wall, config 5: {n} streams {W}x{H} -> {WALL_CANVAS[0]}x"
           f"{WALL_CANVAS[1]}, {tw}x{th} tiles, {WALL_SAMPLES} stereo samples "
-          f"a stream] plan path: every tile err <= {plan_err} vs plain "
-          f"({plan_at1} px at 1 LSB), 0 frame launches; per-cell path (tile 0 "
-          f"at opacity 0.5): err {cell_err} vs plain, {cell_launches} K1 "
-          f"launches, {cell_plain} plain composites; audio equal to the host "
-          f"sum; {n60} streams: not aligned, tiles equal, 4 excess cells "
-          f"blank | the function: {wall_taps / 1e6:.3f} MB of tap sectors, "
-          f"canvas and audio, byte bound {cell_bound:.6f} ms | plan tick: call "
-          f"{plan_ms:.4f} ms, device {plan_dev:.4f} ms ({plan_acts:.0f} device "
-          f"activities), share of the function's bound "
-          f"{cell_bound / plan_dev:.2%}; dense form: {wall_flops / 1e9:.3f} "
-          f"GFLOP, {wall_bytes / 1e6:.3f} MB, bound {wall_bound:.4f} ms "
-          f"({wall_by}), share of the dense form's bound "
-          f"{wall_bound / plan_dev:.1%} | per-cell tick: call {cell_ms:.4f} "
-          f"ms, device {cell_dev:.4f} ms ({cell_acts:.0f} device activities), "
-          f"share of the function's bound {cell_bound / cell_dev:.1%} | {smi}",
-          flush=True)
+          f"a stream; tol {LSB} LSB vs the per-cell plain fold] plan tick: "
+          f"{plan_counts[0]} K1 launches, {plan_counts[1]} product calls, "
+          f"{plan_counts[2]} plain composites, every tile err {plan_err}; "
+          f"per-cell tick (tile 0 at opacity 0.5): {cell_counts[0]} K1 "
+          f"launches, {cell_counts[1]} product calls, {cell_counts[2]} plain "
+          f"composites, every tile err {cell_err}; the products (comparison "
+          f"only) err {dense_err} ({dense_at1} px at 1 LSB); audio equal to "
+          f"the host sum; {n60} streams: {counts60[0]} K1 launches, not "
+          f"aligned, tiles equal, 4 excess cells blank | the function: "
+          f"{wall_taps / 1e6:.3f} MB of tap sectors, canvas and audio, byte "
+          f"bound {tick_bound:.6f} ms | plan tick: call {plan_ms:.4f} ms, "
+          f"device {plan_dev:.4f} ms ({plan_acts:.0f} device activities), "
+          f"host {tick_host:.1f} us (of it the cell wrapper {stack_host:.1f} "
+          f"us, its table {table_host:.1f} us), share "
+          f"{tick_bound / plan_dev:.1%} | "
+          f"per-cell tick: call {cell_ms:.4f} ms, device {cell_dev:.4f} ms "
+          f"({cell_acts:.0f} device activities), share "
+          f"{tick_bound / cell_dev:.1%} | the cell launch alone ({n} identity "
+          f"cells, {stack_acts:.0f} launches): call {stack_ms:.4f} ms, device "
+          f"{stack_dev:.4f} ms, bound {stack_bms:.6f} ms ({stack_by}), share "
+          f"{stack_bms / stack_dev:.1%}, plain {stack_plain_ms:.4f} ms, "
+          f"grid_sample [{n}, 1, {H}, {W}] (library yardstick, err {lib_err}, "
+          f"{lib_at1} px at 1 LSB): call {stack_lib_ms:.4f} ms, device "
+          f"{stack_lib_dev:.4f} ms ({stack_lib_acts:.0f} activities) | "
+          f"the plan tick before (the products, comparison only): call "
+          f"{prod_ms:.4f} ms, device {prod_dev:.4f} ms ({prod_acts:.0f} "
+          f"activities), {wall_flops / 1e9:.3f} GFLOP, dense bound "
+          f"{wall_bound:.4f} ms ({wall_by}), share "
+          f"{wall_bound / prod_dev:.1%} | {smi}", flush=True)
+    tick_row = {"name": f"frame_composite (K1: wall tick's cell launch alone, "
+                        f"{n} identity cells {W}x{H} -> {tw}x{th}, "
+                        f"{tick_launches} launches; launches: the plan tick's)",
+                "route": "cuda",
+                "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
+                "replaces": REPLACES["K1"], "launches": plan_counts[0],
+                "max_abs_err": max(plan_err, cell_err, stack_err),
+                "ms": stack_ms,
+                "device_ms": stack_dev, "plain_ms": stack_plain_ms,
+                "bound_ms": stack_bms, "bound_by": stack_by,
+                "library_ms": stack_lib_ms}
 
-    # the per-cell path's K1 call, alone, for the kernels line
+    # one cell alone (the route before the cell grid: one launch a cell),
+    # for the kernels line
     cell_srcs = [([ys[1], us[1], vs[1]], y420p, unis[1])]
+    one_grids = sample_grids(wall._plan, (H, W), dev)
 
     def cell_call():
         return frame.composite_frame_cuda((tw, th), cell_srcs)
 
+    def cell_library():
+        return grid_sample_y420p(cell_srcs[0][0], one_grids)
+
+    def cell_plain():
+        return composite.composite_stack_torch(y420p, (tw, th), cell_srcs, dev)
+
+    one_want = cell_plain()
+    one_k1_err = max_err(cell_call(), one_want)[0]
+    one_err = max_err(cell_library(), one_want)[0]
+    if one_k1_err > LSB or one_err > 1:
+        fail(f"one wall cell alone: the one-cell launch err {one_k1_err}, "
+             f"grid_sample err {one_err} vs plain")
     k1_bms, k1_by = bound(cell_taps + y420p_bytes(tw, th), 0, 1.0)
-    return {"name": f"frame_composite (K1: wall cell, {W}x{H} -> {tw}x{th})",
-            "route": "cuda",
-            "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
-            "replaces": REPLACES["K1"], "launches": cell_launches,
-            "max_abs_err": cell_err, "ms": timed_ms(cell_call),
-            "device_ms": device_ms(cell_call, "frame_composite_kernel"),
-            "plain_ms": timed_ms(lambda: composite.composite_stack_torch(
-                y420p, (tw, th), cell_srcs, dev), reps=5, batch=2),
-            "bound_ms": k1_bms, "bound_by": k1_by, "library_ms": None}
+    cell_row = {"name": f"frame_composite (K1: one wall cell alone, {W}x{H} "
+                        f"-> {tw}x{th}, a one-cell launch timed for "
+                        f"comparison; launches: the per-cell tick's)",
+                "route": "cuda",
+                "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
+                "replaces": REPLACES["K1"], "launches": cell_counts[0],
+                "max_abs_err": one_k1_err, "ms": timed_ms(cell_call),
+                "device_ms": device_ms(cell_call, "frame_composite_kernel"),
+                "plain_ms": timed_ms(cell_plain, reps=5, batch=2),
+                "bound_ms": k1_bms, "bound_by": k1_by,
+                "library_ms": timed_ms(cell_library)}
+    return [ladder_row, cell_row, tick_row]
 
 
 def pyramid_frames(h, w, seed, dev):
@@ -1547,15 +1729,14 @@ def free_port() -> int:
 def wall_ingest_phase(dev, smi):
     """Phase 21: 64 RTMP publishers into the port's server; each session's
     latest sample seeds a 1920x1080 stream made on the card; one per-cell
-    wall tick (64 K1 launches) and one plan tick.  Returns the kernels-line
-    row of the per-cell K1 launches."""
+    wall tick and one plan tick, each one cell launch per 32 streams.
+    Returns the kernels-line row of K1 on one RTMP-fed cell."""
     import asyncio
     from swiftvideo_tpu_torch.core import EventBox, StepClock, TimePoint, Tx
     from swiftvideo_tpu_torch.media.coded import (CodedMediaSample,
                                                   MediaFormat, MediaType)
     from swiftvideo_tpu_torch.net.rtmp import Rtmp, chunks
-    from swiftvideo_tpu_torch.ops import composite, frame
-    from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms
+    from swiftvideo_tpu_torch.ops import composite, frame, matscale
     from swiftvideo_tpu_torch.media import PixelFormat
     from swiftvideo_tpu_torch.parallel import MixingWall
     n, port = WALL_STREAMS, free_port()
@@ -1639,19 +1820,23 @@ def wall_ingest_phase(dev, smi):
     def tick_plan():
         return wall.step(ys, us, vs, audio_t)
 
+    tick_launches = len(frame.launch_plan(n))
     torch.cuda.synchronize()
     for kern in frame.kernel_launches:
         frame.kernel_launches[kern] = 0
-    frame.launches = composite.calls = 0
+    frame.launches = composite.calls = matscale.calls = 0
     cell_out = tick_cells()
     torch.cuda.synchronize()
     k1, cell_plain = frame.kernel_launches[frame.YUV_KERNEL], composite.calls
     plan_out = tick_plan()
     torch.cuda.synchronize()
-    if k1 != n or frame.launches != n or cell_plain or composite.calls:
-        fail(f"RTMP-fed wall: {k1} K1 launches (want {n}), {frame.launches} "
-             f"frame launches after the plan tick, {composite.calls} plain "
-             f"composites")
+    if (k1 != tick_launches or frame.launches != 2 * tick_launches
+            or cell_plain or composite.calls or matscale.calls):
+        fail(f"RTMP-fed wall: {k1} K1 launches in the per-cell tick (want "
+             f"{tick_launches}), {frame.launches} after the plan tick (want "
+             f"{2 * tick_launches}), {composite.calls} plain composites, "
+             f"{matscale.calls} product calls")
+    plan_k1 = frame.launches - k1
     gw = wall.grid_wh[0]
 
     def cell(out, s):
@@ -1668,38 +1853,58 @@ def wall_ingest_phase(dev, smi):
     plan_vs_cell = max_err(plan_out[:3], cell_out[:3])[0]
     audio_ok = all(np.array_equal(o[3].cpu().numpy(), want_audio)
                    for o in (cell_out, plan_out))
-    if cell_err > LSB or plan_vs_cell > 1 or not audio_ok:
+    if cell_err > LSB or plan_vs_cell > LSB or not audio_ok:
         fail(f"RTMP-fed wall: per-cell tiles vs their sessions' streams err "
              f"{cell_err}, plan vs per-cell {plan_vs_cell}, audio exact "
              f"{audio_ok}")
-    cell_ms = timed_ms(tick_cells, reps=3, batch=2, warmup=1)
-    cell_dev, cell_acts = device_total_ms(tick_cells, n=3)
+    cell_ms = timed_ms(tick_cells, reps=10, batch=3)
+    cell_dev, cell_acts = device_total_ms(tick_cells, n=10)
     cell_srcs = [(planes[1], PixelFormat.y420p, unis[1])]
+    grids = sample_grids(wall._plan, (H, W), dev)
 
     def cell_call():
         return frame.composite_frame_cuda((tw, th), cell_srcs)
 
+    def cell_library():
+        return grid_sample_y420p(planes[1], grids)
+
+    def cell_plain():
+        return composite.composite_stack_torch(PixelFormat.y420p, (tw, th),
+                                               cell_srcs, dev)
+
+    one_want = cell_plain()
+    one_k1_err = max_err(cell_call(), one_want)[0]
+    lib_err = max_err(cell_library(), cell(cell_out, 1))[0]
+    if one_k1_err > LSB or lib_err > 1:
+        fail(f"RTMP-fed wall: one cell alone, the one-cell launch err "
+             f"{one_k1_err} vs plain, grid_sample err {lib_err} vs the "
+             f"per-cell tile")
     cell_taps = tap_bytes([wall._plan], (H, W))
     bms, by = bound(cell_taps + y420p_bytes(tw, th), 0, 1.0)
-    row = {"name": f"frame_composite (K1: RTMP-fed wall cell, {W}x{H} -> "
-                   f"{tw}x{th})",
+    row = {"name": f"frame_composite (K1: one RTMP-fed wall cell alone, "
+                   f"{W}x{H} -> {tw}x{th}, a one-cell launch timed for "
+                   f"comparison; launches: the per-cell tick's)",
            "route": "cuda", "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
-           "replaces": REPLACES["K1"], "launches": k1, "max_abs_err": cell_err,
+           "replaces": REPLACES["K1"], "launches": k1,
+           "max_abs_err": one_k1_err,
            "ms": timed_ms(cell_call),
            "device_ms": device_ms(cell_call, "frame_composite_kernel"),
-           "plain_ms": timed_ms(lambda: composite.composite_stack_torch(
-               PixelFormat.y420p, (tw, th), cell_srcs, dev), reps=5, batch=2),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
+           "plain_ms": timed_ms(cell_plain, reps=5, batch=2),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timed_ms(cell_library)}
     print(f"[21 RTMP ingest -> wall, config 5's host shape] {n} publishers "
           f"into one port Rtmp server (dechunker native "
           f"{chunks.native_available()}): sessions and their 3 samples each "
           f"accepted in {accept_s:.3f} s; {n} streams {W}x{H} made on the card "
-          f"from the sessions' seeds; per-cell tick: {k1} K1 launches, every "
-          f"tile err {cell_err} vs the plain composite of its session's "
-          f"stream; plan tick within {plan_vs_cell} LSB of it; audio fold "
+          f"from the sessions' seeds; per-cell tick: {k1} K1 launches (cell "
+          f"grid), no product or plain call, every tile err {cell_err} vs the "
+          f"plain composite of its session's stream; plan tick "
+          f"{plan_k1} K1 launches, within {plan_vs_cell} LSB of "
+          f"it; audio fold "
           f"exact | per-cell tick call {cell_ms:.4f} ms, device {cell_dev:.4f} "
-          f"ms ({cell_acts:.0f} device activities); K1 cell device "
-          f"{row['device_ms']:.4f} ms | {smi}", flush=True)
+          f"ms ({cell_acts:.0f} device activities); one cell alone (a "
+          f"one-cell launch, comparison only): err {one_k1_err} vs plain, "
+          f"device {row['device_ms']:.4f} ms | {smi}", flush=True)
     return row
 
 
@@ -2485,7 +2690,7 @@ def main() -> None:
 
     yuv_rows = yuv_targets_phase(dev, ctx, smi, cam_srcs, ov_srcs,
                                  drive_composer)
-    wall_k1 = batch_phases(dev, smi, rng)
+    batch_rows = batch_phases(dev, smi, rng)
     pyramid_rows = pyramid_phase(dev, ctx, smi, luma_sample)
     packed_phase(dev, ctx, rng)
     station_phase(dev, rng, smi)
@@ -2520,7 +2725,7 @@ def main() -> None:
                         "plain_ms": plain[(key, res)],
                         "bound_ms": bms, "bound_by": by, "library_ms": None})
     kernels.extend(yuv_rows)
-    kernels.append(wall_k1)
+    kernels.extend(batch_rows)
     kernels.extend(pyramid_rows)
     kernels.extend(net_rows)
     print("[16 profiler] " + ("; ".join(profiler_notes) or "every profile "

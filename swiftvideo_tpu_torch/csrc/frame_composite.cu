@@ -51,6 +51,18 @@
 // * TMA is not used: the planes are new allocations every tick, so a tensor map
 //   would have to be encoded on the host for every plane of every call, which is the
 //   host cost this form removes.
+// * Cell grid (FrameParams cell_h, cell_w; y420p targets only).  The target is a
+//   column of cells of cell_h x cell_w pixels (chroma cell_h / 2 x cell_w / 2; the
+//   target is cell_w wide, ops/frame.py pack_params checks it), and a
+//   pixel's grid position is taken inside its own cell: ndc(x mod cell_w, cell_w),
+//   ndc(y mod cell_h, cell_h).  Each source's maps are then evaluated operation for
+//   operation as in a launch onto a cell-sized target, so a stack of cells (the
+//   mixing wall's tiles, a batch of scaled frames) is one launch per kCapacity
+//   cells with the pixels of one launch per cell.  A source's boxes are its
+//   cell-local boxes shifted to its cell and clipped to it (ops/frame.py
+//   cell_descriptors): every pixel of a neighbouring cell has the same local
+//   position, and only the box tests (the tile's and each pixel's) keep a source
+//   inside its own cell.  cell_h = cell_w = 0: no cell grid.
 //
 // Numerics follow golden operation for operation, and this file is compiled with
 // --fmad=false so no multiply-add pair is contracted into an FMA: the mask tests at
@@ -103,7 +115,8 @@ struct FrameParams {
   int out_fmt;                // OutFmt
   int chained;                // 0: start from the cleared frame; 1: from the outputs
   int ch, cw;                 // a yuv target's chroma grid (rows, columns)
-  int pad[3];
+  int cell_h, cell_w;         // a y420p target's cell grid on its luma grid; 0, 0: none
+  int pad;
   SrcDesc src[kCapacity];
 };
 static_assert(sizeof(FrameParams) == 64 + kCapacity * 192,
@@ -137,6 +150,12 @@ __device__ __forceinline__ bool in01(float v) { return v >= 0.0f && v <= 1.0f; }
 // golden._grid_ndc: i / n * 2 - 1
 __device__ __forceinline__ float ndc(int i, int n) {
   return __fdiv_rn(static_cast<float>(i), static_cast<float>(n)) * 2.0f - 1.0f;
+}
+
+// The grid position of pixel i of a grid of n pixels: on the target, or with cells
+// of m > 0 pixels on its own cell.
+__device__ __forceinline__ float grid_ndc(int i, int n, int m) {
+  return m > 0 ? ndc(i % m, m) : ndc(i, n);
 }
 
 // golden.bilinear_norm's taps along one axis: clamp-to-edge, texel corners at
@@ -202,9 +221,10 @@ __device__ __forceinline__ Sampled sampled_planes(int fmt, int grid) {
   return s;
 }
 
-// A tile of the launch.
+// A tile of the launch, and the cell size on its grid (0, 0: no cell grid).
 struct Tile {
   int grid, gx0, gy0, gh, gw;
+  int cell_h, cell_w;
 };
 
 // A tile's plan: its pixel positions, and per planning warp, bit s set if source s
@@ -230,6 +250,8 @@ __device__ __forceinline__ Tile tile_at(const FrameParams& p, bool rgba, int t) 
   g.grid = rgba ? kRgbaGrid : kLuma;
   g.gh = p.h;
   g.gw = p.w;
+  g.cell_h = rgba ? 0 : p.cell_h;
+  g.cell_w = rgba ? 0 : p.cell_w;
   int across = (g.gw + kTileW - 1) / kTileW;
   if (!rgba) {
     const int luma = across * ((g.gh + kTileH - 1) / kTileH);
@@ -238,6 +260,8 @@ __device__ __forceinline__ Tile tile_at(const FrameParams& p, bool rgba, int t) 
       g.grid = kChroma;
       g.gh = p.ch;
       g.gw = p.cw;
+      g.cell_h /= 2;  // y420p chroma
+      g.cell_w /= 2;
       across = (g.gw + kTileW - 1) / kTileW;
     }
   }
@@ -269,9 +293,9 @@ __device__ __forceinline__ bool axis_aligned(const SrcDesc& d) {
 __device__ __forceinline__ void plan_tile(const FrameParams& p, const Tile& g, Plan& pl) {
   const int tid = threadIdx.x;
   if (tid < kTileW) {
-    pl.px[tid] = ndc(g.gx0 + tid, g.gw);
+    pl.px[tid] = grid_ndc(g.gx0 + tid, g.gw, g.cell_w);
   } else if (tid < kTileW + kTileH) {
-    pl.py[tid - kTileW] = ndc(g.gy0 + tid - kTileW, g.gh);
+    pl.py[tid - kTileW] = grid_ndc(g.gy0 + tid - kTileW, g.gh, g.cell_h);
   }
   const int n = min(p.n, kCapacity);
   unsigned mask = 0u, sep = 0u;
@@ -887,7 +911,9 @@ int resident_blocks(Kernel kernel, int which) {
 // into the launch's parameters.  out_fmt 0: out[0] = Y, out[1] = Cb, out[2] = Cr, the
 // chroma planes [ch, cw] (y420p, y422p or y444p); 1 / 2: out[0] = Y, out[1] =
 // interleaved nv12 / nv21 chroma [ch, cw, 2]; 3 / 4: out[0] = interleaved [h, w, 4]
-// RGBA / BGRA (ch, cw unused).  Launches on `stream` of card `device` as many
+// RGBA / BGRA (ch, cw unused).  cell_h, cell_w > 0 (out_fmt 0 as y420p only, even
+// sizes, h a multiple of cell_h, w = cell_w): the target is a column of cells, as the
+// file's note says.  Launches on `stream` of card `device` as many
 // blocks as the card holds at once (at most one per tile) and returns
 // cudaGetLastError(); the calling thread's current device is left as it was.
 extern "C" int sv_frame_composite(const void* params, int device, void* stream) {

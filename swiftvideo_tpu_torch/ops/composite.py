@@ -318,3 +318,14 @@ def composite_stack_torch(out_fmt: PixelFormat, size: Tuple[int, int],
         planes = apply_composite(planes, fold_fmt, src_planes, in_fmt, uni)
     return ([planar_to_packed422(planes, out_fmt, torch)] if packed_out
             else planes)
+
+
+def composite_cells_torch(cell_size: Tuple[int, int], sources,
+                          device: torch.device) -> List[torch.Tensor]:
+    """The plain version of the frame kernel's cell launch
+    (ops/frame.py composite_cells_cuda): each source alone onto its own
+    cleared y420p cell of ``cell_size`` = (w, h), the cells stacked top to
+    bottom into [n * h, w] luma and two [n * h / 2, w / 2] chroma planes."""
+    cells = [composite_stack_torch(PixelFormat.y420p, cell_size, [src], device)
+             for src in sources]
+    return [torch.cat(planes) for planes in zip(*cells)]

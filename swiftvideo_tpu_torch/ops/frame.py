@@ -20,12 +20,18 @@ One launch takes up to ``CAPACITY`` sources; a longer stack runs as
 consecutive launches onto the same target, each after the first in chained
 mode (``launch_plan``).
 
+``composite_cells_cuda`` composites each frame of a batch alone onto its
+own cell of a tile stack (the mixing wall's tiles, a batch of scaled
+frames): the header's cell grid makes the kernel place every pixel inside
+its cell, so a launch of up to ``CAPACITY`` cells gives the pixels of one
+launch per cell, and the batch's table is built with numpy, not per frame.
+
 The kernels are built on first use with ``nvcc`` into ``build/`` inside
 this package (ops/nvcc.py: a plain C interface, loaded with ctypes) and
 launch on the current stream.  CPU tensors take the plain version
-(ops/composite.composite_stack_torch); CUDA tensors take the kernel or
-raise.  ``launches`` counts kernel launches, ``kernel_launches`` the same
-by kernel name.
+(ops/composite.composite_stack_torch, composite_cells_torch); CUDA tensors
+take the kernel or raise.  ``launches`` counts kernel launches,
+``kernel_launches`` the same by kernel name.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import torch
 from ..media.pixel import PixelFormat, num_planes, plane_array_shape
 
 from . import nvcc
-from .composite import composite_stack_torch, packed
+from .composite import composite_cells_torch, composite_stack_torch, packed
 
 # kernel launches since import; a plain integer so a run can show that its
 # frames went through the kernel, and the same count by kernel: the yuv
@@ -66,7 +72,8 @@ assert _DESC.itemsize == 192
 # FrameParams: the 64-byte header, then CAPACITY SrcDesc rows
 _HEADER = np.dtype([("out", "<u8", 3), ("n", "<i4"), ("h", "<i4"),
                     ("w", "<i4"), ("out_fmt", "<i4"), ("chained", "<i4"),
-                    ("ch", "<i4"), ("cw", "<i4"), ("pad", "<i4", 3)])
+                    ("ch", "<i4"), ("cw", "<i4"), ("cell_h", "<i4"),
+                    ("cell_w", "<i4"), ("pad", "<i4")])
 assert _HEADER.itemsize == 64
 _PARAMS = np.dtype([("head", _HEADER), ("src", _DESC, CAPACITY)])
 
@@ -194,6 +201,18 @@ def border_boxes(u: np.ndarray, size: Tuple[int, int],
                     np.int32).reshape(-1, 2, 4)
 
 
+def cell_boxes(u: np.ndarray, cell_size: Tuple[int, int]) -> np.ndarray:
+    """[n, 2, 4] boxes of packed uniform row i of ``u`` on a column of
+    y420p cells of ``cell_size`` = (w, h): its boxes on a cell-sized target
+    (``border_boxes``, clipped to the cell), shifted down to cell i on the
+    luma and the chroma grid."""
+    boxes = border_boxes(u, cell_size, PixelFormat.y420p)
+    rows = np.arange(len(boxes), dtype=np.int32)[:, None] * int(cell_size[1])
+    boxes[:, 0, :2] += rows
+    boxes[:, 1, :2] += rows // 2
+    return boxes
+
+
 def descriptors(size: Tuple[int, int], sources,
                 out_fmt: PixelFormat) -> np.ndarray:
     """The kernel's per-source table (one _DESC row per source) for a
@@ -217,6 +236,28 @@ def descriptors(size: Tuple[int, int], sources,
     return table
 
 
+def cell_descriptors(cell_size: Tuple[int, int], planes, fmt: PixelFormat,
+                     uniforms: np.ndarray) -> np.ndarray:
+    """The table of a batch of cells: frame i of ``planes`` (the planes of
+    ``fmt``, each with a leading axis of n contiguous frames), with
+    packed uniform row i of ``uniforms``, on cell i of a column of
+    ``cell_size`` y420p cells (``cell_boxes``).  Plane pointers step by
+    each plane's frame stride, so no frame is sliced on the host."""
+    u = np.asarray(uniforms, np.float32).reshape(-1, 29)
+    n = len(u)
+    table = np.zeros(n, _DESC)
+    step = np.arange(n, dtype=np.uint64)
+    for k, p in enumerate(planes):
+        table["plane"][:, k] = (np.uint64(p.data_ptr())
+                                + step * np.uint64(p.stride(0)))
+    table["fmt"] = _SRC_CODES[fmt]
+    chroma = planes[1] if len(planes) > 1 else planes[0]
+    table["dims"] = tuple(planes[0].shape[1:3]) + tuple(chroma.shape[1:3])
+    table["box"] = cell_boxes(u, cell_size)
+    table["u"] = u
+    return table
+
+
 def launch_plan(n: int) -> List[Tuple[int, int]]:
     """The launches of an n-source stack: [start, stop) slices of at most
     CAPACITY sources, one launch (a clear, or a copy of the target) when
@@ -225,12 +266,23 @@ def launch_plan(n: int) -> List[Tuple[int, int]]:
 
 
 def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
-                rows: np.ndarray, chained: bool) -> np.ndarray:
+                rows: np.ndarray, chained: bool,
+                cell: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """One launch's FrameParams: the target's planes, shape and chroma
-    grid, and ``rows`` (at most CAPACITY _DESC rows) as its sources."""
+    grid, its cell grid (``cell`` = (w, h) of a y420p target's cells, one
+    column of them, or None), and ``rows`` (at most CAPACITY _DESC rows) as
+    its sources."""
     if len(rows) > CAPACITY:
         raise ValueError(f"{len(rows)} sources in one launch, at most "
                          f"{CAPACITY}")
+    if cell is not None:
+        cell_w, cell_h = int(cell[0]), int(cell[1])
+        if out_fmt != PixelFormat.y420p:
+            raise ValueError(f"a cell grid needs a y420p target, not {out_fmt}")
+        if (cell_w <= 0 or cell_h <= 0 or cell_w % 2 or cell_h % 2
+                or int(size[0]) != cell_w or int(size[1]) % cell_h):
+            raise ValueError(f"cells of {cell} do not tile a y420p {size} "
+                             f"target as one column of even-sized cells")
     params = np.zeros((), _PARAMS)
     head = params["head"]
     head["out"][:len(outs)] = [t.data_ptr() for t in outs]
@@ -239,8 +291,20 @@ def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
     head["out_fmt"] = _OUT_CODES[out_fmt]
     head["chained"] = int(chained)
     head["ch"], head["cw"] = chroma_grid(out_fmt, size)
+    if cell is not None:
+        head["cell_h"], head["cell_w"] = cell_h, cell_w
     params["src"][:len(rows)] = rows
     return params
+
+
+def _launch(lib, params: np.ndarray, index: int, stream: int,
+            kernel: str) -> None:
+    global launches
+    err = lib.sv_frame_composite(params.ctypes.data, index, stream)
+    if err != 0:
+        raise RuntimeError(f"frame_composite launch failed: CUDA error {err}")
+    launches += 1
+    kernel_launches[kernel] += 1
 
 
 def composite_frame_cuda(size: Tuple[int, int], sources,
@@ -253,7 +317,6 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
     frame (packed 4:2:2 targets go through ``registry.composite_frame``).
     Returns the target's u8 planes on the sources' device.  ``device``
     names it when there are no sources."""
-    global launches
     if out_fmt not in KERNEL_TARGETS:
         raise ValueError(f"frame kernel writes no {out_fmt} target")
     dev = _check(sources, target, device)
@@ -280,10 +343,69 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
     for a, b in launch_plan(len(sources)):
         params = pack_params(size, out_fmt, outs, table[a:b],
                              a > 0 or target is not None)
-        err = lib.sv_frame_composite(params.ctypes.data, index, stream)
-        if err != 0:
-            raise RuntimeError(f"frame_composite launch failed: CUDA error "
-                               f"{err}")
-        launches += 1
-        kernel_launches[kernel] += 1
+        _launch(lib, params, index, stream, kernel)
+    return outs
+
+
+def _check_batch(planes, fmt: PixelFormat) -> Tuple[torch.device, int]:
+    """Validate a batch of frames (each plane with a leading frame axis,
+    each frame contiguous, as ``_check`` validates its first); returns the
+    one device they live on and the frame count."""
+    counts = {p.shape[0] if isinstance(p, torch.Tensor) and p.dim() > 1
+              else 0 for p in planes}
+    if len(counts) != 1 or 0 in counts:
+        raise ValueError(f"planes {[getattr(p, 'shape', p) for p in planes]} "
+                         f"are not one batch of frames")
+    return _check([([p[0] for p in planes], fmt, None)], None, None), \
+        counts.pop()
+
+
+def composite_cells_cuda(cell_size: Tuple[int, int], planes,
+                         fmt: PixelFormat, uniforms,
+                         out_fmt: PixelFormat = PixelFormat.y420p
+                         ) -> List[torch.Tensor]:
+    """Composite frame i of a batch — ``planes``, the planes of ``fmt``
+    each with a leading axis of n frames (u8, each frame contiguous), and
+    ``uniforms``, [n, 29] packed — alone onto cell i of a tile stack: a
+    y420p target of n * h rows and w columns for ``cell_size`` = (w, h),
+    even, whose cell i
+    (rows i * h to (i + 1) * h, chroma rows from i * h / 2) is bit for bit
+    what ``composite_frame_cuda`` makes of that frame alone on a cleared
+    cell.  Returns the stack's three u8 planes on the frames' device.  On
+    the card: one launch a ``CAPACITY`` cells, each onto its own row slice
+    of the stack (unchained: the cells are disjoint); CPU tensors take the
+    plain per-cell fold (``composite_cells_torch``).  Only y420p stacks are
+    written: another ``out_fmt`` raises."""
+    if out_fmt != PixelFormat.y420p:
+        raise ValueError(f"a cell grid needs a y420p target, not {out_fmt}")
+    w, h = int(cell_size[0]), int(cell_size[1])
+    if w <= 0 or h <= 0 or w % 2 or h % 2:
+        raise ValueError(f"cells of {cell_size} need even, positive sizes")
+    planes = list(planes)
+    dev, n = _check_batch(planes, fmt)
+    uniforms = np.asarray(uniforms, np.float32).reshape(-1, 29)
+    if len(uniforms) != n:
+        raise ValueError(f"{len(uniforms)} uniform rows for {n} frames")
+    if dev.type == "cpu":
+        frames = zip(*(p.unbind(0) for p in planes))
+        return composite_cells_torch(
+            (w, h), [(list(f), fmt, u) for f, u in zip(frames, uniforms)], dev)
+    if dev.type != "cuda":
+        raise ValueError(f"frame kernel runs on cuda, not {dev}")
+    cell_rows = (h, h // 2, h // 2)
+    outs = [torch.empty((n * r, c), dtype=torch.uint8, device=dev)
+            for r, c in zip(cell_rows, (w, w // 2, w // 2))]
+    table = cell_descriptors((w, h), planes, fmt, uniforms)
+    lib = build()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for a, b in launch_plan(n):
+        # launch a..b writes its own row slice: boxes move up a cells
+        rows = table[a:b].copy()
+        rows["box"][:, 0, :2] -= a * h
+        rows["box"][:, 1, :2] -= a * (h // 2)
+        part = [o[a * r:b * r] for o, r in zip(outs, cell_rows)]
+        params = pack_params((w, (b - a) * h), PixelFormat.y420p, part, rows,
+                             False, cell=(w, h))
+        _launch(lib, params, index, stream, YUV_KERNEL)
     return outs

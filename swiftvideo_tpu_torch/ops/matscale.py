@@ -1,13 +1,17 @@
-"""Bilinear scale of y420p planes as two dense products: ``out = V @ X @ H``.
+"""Bilinear scale of y420p frames: the transcode ladder's rungs and the
+mixing wall's default cells.
 
-``V`` [oh, ih] and ``H`` [iw, ow] are two-tap clamp-to-edge hat matrices
-built on the host from a plan's geometry; ``X`` is the source plane as
-float32.  Any axis-aligned full-coverage scale (the transcode ladder's
-1080p -> 720p / 480p / 360p rungs, the mixing wall's 1080 -> 136 tiles) is
-two matrix products with no gathers.  This is the counterpart of
-``swiftvideo_tpu/ops/matscale.py``, which the JAX package computes outside
-any Pallas kernel; here the products are ``torch.matmul`` on the planes'
-device.
+On the card a scale is the frame kernel (ops/frame.py): ``scale_y420p`` is
+one ``composite_frame_cuda`` launch with the plan's packed uniform, and
+``scale_y420p_batch`` one cell launch (``composite_cells_cuda``) per 32
+frames, one cell a frame.  That is golden's bilinear sample itself, bit for
+bit against the plain composite.  On the CPU both are two dense products,
+``out = V @ X @ H``: ``V`` [oh, ih] and ``H`` [iw, ow] are two-tap
+clamp-to-edge hat matrices built on the host from the plan's geometry and
+``X`` is the source plane as float32, as ``swiftvideo_tpu/ops/matscale.py``
+computes them outside any Pallas kernel (the TPU's matrix unit suits
+them).  ``products`` runs them on any device; on the card only as a
+comparison.  ``calls`` counts the product calls.
 
 Precision: the products run in full float32 and ``check_fp32_matmul``
 raises when PyTorch's TF32 switches are on (ops/fp32.py).  Each output is
@@ -22,7 +26,7 @@ kernel's plane algebra operation for operation (the plan is
 parity-critical: one ulp moves a tap), so a plan built from composite
 uniforms samples like the plain composite's separable path.  The hat
 matrices are built once per plan and copied once per device
-(``ScalePlan.on``).
+(``ScalePlan.on``); the plan keeps the packed uniform it was planned from.
 """
 
 from __future__ import annotations
@@ -33,8 +37,14 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..media.pixel import PixelFormat
+from . import frame
 from .composite import is_axis_aligned
 from .fp32 import check_fp32_matmul
+
+# product calls (``products``) since import: on the card, a run can show
+# that its scales took the frame kernel
+calls = 0
 
 
 def _plane_params_np(packed: np.ndarray, h_out: int, w_out: int,
@@ -89,13 +99,15 @@ def hat_matrix(n_out: int, n_in: int, a: float, b: float,
 
 @dataclass(frozen=True, eq=False)
 class ScalePlan:
-    """Host-built sampling matrices for one y420p -> y420p geometry."""
+    """Host-built sampling matrices for one y420p -> y420p geometry, and
+    the packed uniform they were built from."""
 
     vy: np.ndarray   # [oh, ih]
     hy: np.ndarray   # [iw, ow]
     vc: np.ndarray   # [oh/2, ih/2]
     hc: np.ndarray   # [iw/2, ow/2]
     out_size: Tuple[int, int]
+    uniform: np.ndarray  # [29] float32, the frame kernel's uniforms
     _on: Dict[torch.device, Tuple[torch.Tensor, ...]] = field(
         default_factory=dict, init=False, repr=False)
 
@@ -152,6 +164,7 @@ def plan_scale(uniform, out_size: Tuple[int, int],
         vc=hat_matrix(h // 2, h_in // 2, ayc, byc),
         hc=hat_matrix(w // 2, w_in // 2, axc, bxc, transpose=True),
         out_size=out_size,
+        uniform=np.asarray(p, np.float32),
     )
 
 
@@ -159,16 +172,30 @@ def _scale_plane(x: torch.Tensor, v: torch.Tensor,
                  hmat: torch.Tensor) -> torch.Tensor:
     """u8 [..., ih, iw] -> u8 [..., oh, ow]; a leading batch axis
     broadcasts against ``v``."""
-    if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8:
-        raise TypeError("planes must be uint8 tensors")
-    if tuple(x.shape[-2:]) != (v.shape[1], hmat.shape[0]):
-        raise ValueError(f"plane {tuple(x.shape)} does not fit a plan from "
-                         f"{(v.shape[1], hmat.shape[0])}")
     s = torch.matmul(torch.matmul(v, x.to(torch.float32)), hmat)
     return torch.clamp(torch.round(s), 0, 255).to(torch.uint8)
 
 
-def _scale_planes(y, cb, cr, plan: ScalePlan):
+def _fits(planes, plan: ScalePlan) -> None:
+    """Raise unless ``planes`` are u8 tensors of the plan's source shape
+    (with or without a leading batch axis)."""
+    ih, iw = plan.vy.shape[1], plan.hy.shape[0]
+    for x, shape in zip(planes, ((ih, iw), (ih // 2, iw // 2),
+                                 (ih // 2, iw // 2))):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8:
+            raise TypeError("planes must be uint8 tensors")
+        if tuple(x.shape[-2:]) != shape:
+            raise ValueError(f"plane {tuple(x.shape)} does not fit a plan "
+                             f"from {(ih, iw)}")
+
+
+def products(y, cb, cr, plan: ScalePlan):
+    """The three planes through ``V @ X @ H`` on their device (a leading
+    batch axis broadcasts): the CPU's route, and on the card a comparison
+    only."""
+    global calls
+    calls += 1
+    _fits((y, cb, cr), plan)
     check_fp32_matmul()
     vy, hy, vc, hc = plan.on(y.device)
     return (_scale_plane(y, vy, hy), _scale_plane(cb, vc, hc),
@@ -177,14 +204,29 @@ def _scale_planes(y, cb, cr, plan: ScalePlan):
 
 def scale_y420p(planes: Sequence[torch.Tensor], plan: ScalePlan):
     """Scale one y420p frame (y [ih, iw], cb, cr [ih/2, iw/2], u8 tensors
-    on one device) to ``plan.out_size``; returns three u8 tensors there."""
+    on one device) to ``plan.out_size``; returns three u8 tensors there.
+    The card: one frame-kernel launch; the CPU: the products."""
     y, cb, cr = planes
-    return _scale_planes(y, cb, cr, plan)
+    if y.device.type == "cpu":
+        return products(y, cb, cr, plan)
+    _fits(planes, plan)
+    return tuple(frame.composite_frame_cuda(
+        plan.out_size, [([y, cb, cr], PixelFormat.y420p, plan.uniform)]))
 
 
 def scale_y420p_batch(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
                       plan: ScalePlan):
     """[N, ih, iw] luma and [N, ih/2, iw/2] chroma -> [N, oh, ow] and
-    [N, oh/2, ow/2]: the stream axis is the products' batch axis (no loop
-    over streams)."""
-    return _scale_planes(ys, us, vs, plan)
+    [N, oh/2, ow/2] (no loop over frames on the device).  The card: the
+    frame kernel's cell launch, one cell a frame; the CPU: the products,
+    with the frame axis as their batch axis."""
+    if ys.device.type == "cpu":
+        return products(ys, us, vs, plan)
+    _fits((ys, us, vs), plan)
+    n = ys.shape[0]
+    ow, oh = plan.out_size
+    y, u, v = frame.composite_cells_cuda(
+        plan.out_size, [ys, us, vs], PixelFormat.y420p,
+        np.broadcast_to(plan.uniform, (n, plan.uniform.shape[0])))
+    return (y.view(n, oh, ow), u.view(n, oh // 2, ow // 2),
+            v.view(n, oh // 2, ow // 2))

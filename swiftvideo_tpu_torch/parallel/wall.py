@@ -13,12 +13,14 @@ over the ranks as the JAX package splits it over a device mesh:
 * audio: each rank sums gain * sample over its streams in float32, one
   ``all_reduce`` adds the partial sums, then trunc and a clamp to s16.
 
-Two video paths, as in the JAX package.  Default uniforms make every cell a
-pure full-coverage scale: the whole batch goes through the two products of
-``ops/matscale.scale_y420p_batch``.  Per-cell uniforms (aspect fit, offset,
-opacity, fill) composite each stream onto a blank tile with
-``ops/frame.composite_frame_cuda``: the frame kernel on the card (one
-launch per cell), its plain version for CPU tensors.
+Two video paths, as in the JAX package: default uniforms (every cell a
+pure full-coverage scale) and per-cell uniforms (aspect fit, offset,
+opacity, fill).  On the card both are the frame kernel's cell launch
+(``ops/frame.composite_cells_cuda``): each stream onto its own cell of a
+tile stack, one launch per 32 streams, default cells with the identity
+uniforms.  On the CPU default cells take the two products of
+``ops/matscale.scale_y420p_batch`` (the JAX package's route) and per-cell
+uniforms the cell launch's plain version, one plain composite per cell.
 
 Without a group the wall runs on one device, the card unless the caller
 asks for the CPU; the aligned layout then holds exactly when the streams
@@ -133,23 +135,24 @@ class MixingWall:
     # --- one tick -----------------------------------------------------------
     def _scale_cells(self, ys, us, vs, uniforms):
         """Each of this rank's real streams onto its own blank tile with its
-        own uniforms: one frame-kernel launch per stream on the card.
-        Padded streams keep zero tiles, which ``_blank_fix`` blanks."""
+        own uniforms: the frame kernel's cell launch on the card (one launch
+        per 32 streams), the plain per-cell fold for CPU tensors.  Padded
+        streams keep zero tiles, which ``_blank_fix`` blanks."""
         if isinstance(uniforms, torch.Tensor):
             uniforms = uniforms.cpu().numpy()
         uniforms = np.asarray(uniforms, np.float32)
         tw, th = self.tile
-        tiles = (ys.new_zeros((self.local, th, tw)),
-                 ys.new_zeros((self.local, th // 2, tw // 2)),
-                 ys.new_zeros((self.local, th // 2, tw // 2)))
-        real = min(self.local, self.n_streams - self.rank * self.local)
-        for i in range(real):
-            out = frame.composite_frame_cuda(
-                (tw, th), [([ys[i], us[i], vs[i]], PixelFormat.y420p,
-                            uniforms[i])], PixelFormat.y420p)
-            for t, plane in zip(tiles, out):
-                t[i] = plane
-        return tiles
+        shapes = ((th, tw), (th // 2, tw // 2), (th // 2, tw // 2))
+        real = max(0, min(self.local, self.n_streams - self.rank * self.local))
+        if real == 0:
+            return tuple(ys.new_zeros((self.local,) + s) for s in shapes)
+        stack = [t.view((real,) + s) for t, s in zip(frame.composite_cells_cuda(
+            (tw, th), [ys[:real], us[:real], vs[:real]], PixelFormat.y420p,
+            uniforms[:real]), shapes)]
+        if real == self.local:
+            return tuple(stack)
+        return tuple(torch.cat([t, t.new_zeros((self.local - real,) + s)])
+                     for t, s in zip(stack, shapes))
 
     def _blank_fix(self, tiles: torch.Tensor, fill: int) -> torch.Tensor:
         """Blank the padded and excess cells: [n_pad, ...] tiles -> the
@@ -188,11 +191,14 @@ class MixingWall:
         float32; uniforms: optional [local, 29] per-cell composite uniforms.
         Returns (wall_y, wall_u, wall_v, mixed).
 
-        Without uniforms, cells take the products of ops/matscale.py;
-        per-cell uniforms take the frame kernel, one launch per cell."""
+        On the card every cell takes the frame kernel's cell launch, with
+        the identity uniforms without ``uniforms``; on the CPU default cells
+        take the products of ops/matscale.py, per-cell uniforms the plain
+        per-cell fold."""
         if gains is None:
             gains = self.default_gains()
-        if uniforms is None and self._plan is not None:
+        if (uniforms is None and self._plan is not None
+                and self.device.type == "cpu"):
             tiles = scale_y420p_batch(ys, us, vs, self._plan)
         else:
             if uniforms is None:

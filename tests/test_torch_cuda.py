@@ -6,8 +6,11 @@ and the refine kernel) against its plain version, and the audio
 folds against the host loop; the batch paths: the ladder's products (<= 1 LSB against the plain
 composite, and raising under the TF32 switches), the batched fold (exact),
 the device resampler (< 1e-4 against the host route) and the SRC stage's
-bookkeeping, and the mixing wall's plan path (<= 1 LSB) and per-cell path
-(0 LSB, one frame-kernel launch per stream).  Marked ``cuda``; they skip where there is no card.  Run them on the
+bookkeeping; the ladder's rungs (one frame-kernel launch each, 0 LSB
+against the plain composite; the products, kept as a comparison, within 1
+LSB and raising under the TF32 switches), the frame kernel's cell launch
+(0 LSB against the per-cell plain fold, one launch per 32 cells) and the
+mixing wall's default and per-cell paths through it (0 LSB).  Marked ``cuda``; they skip where there is no card.  Run them on the
 card with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerance: 0 LSB for pixels (the frame kernels are bit-exact against the
 plain version), exact for motion vectors and audio.  The frame cases cover
@@ -411,20 +414,27 @@ def _plain_scale(card, planes, in_size, out_size):
 @pytest.mark.parametrize("rung", [(1280, 720), (854, 480), (640, 360)],
                          ids=lambda r: f"{r[0]}x{r[1]}")
 def test_ladder_rung_within_one_lsb_of_plain_on_card(card, rung):
+    """The rung is one frame-kernel launch, bit for bit the plain composite;
+    the products, a comparison only, stay within 1 LSB of it."""
     planes = _y420p(np.random.default_rng(rung[0]), 1920, 1080, card)
     plan = matscale.plan_scale(identity_uniforms((1920, 1080), rung), rung,
                                (1080, 1920))
+    launches, products = frame.launches, matscale.calls
     got = matscale.scale_y420p(planes, plan)
+    assert (frame.launches, matscale.calls) == (launches + 1, products)
     want = _plain_scale(card, planes, (1920, 1080), rung)
-    for g, w in zip(got, want):
+    dense = matscale.products(*planes, plan)
+    for g, w, d in zip(got, want, dense):
         assert g.is_cuda and g.dtype == torch.uint8 and g.shape == w.shape
-        assert int((g.int() - w.int()).abs().max()) <= 1
+        assert torch.equal(g, w)
+        assert int((d.int() - w.int()).abs().max()) <= 1
 
 
 @pytest.mark.parametrize("switch", ["allow_tf32", "precision high"])
 def test_ladder_and_resampler_raise_under_tf32_on_card(card, switch):
     """The TF32 switches would put the products on TF32 and lose the 1 LSB
-    contract: the calls raise instead."""
+    contract: the ladder's products and the resampler raise instead.  The
+    ladder's own route, the frame kernel, does not read them."""
     planes = _y420p(np.random.default_rng(0), 1920, 1080, card)
     plan = matscale.plan_scale(identity_uniforms((1920, 1080), (640, 360)),
                                (640, 360), (1080, 1920))
@@ -437,16 +447,18 @@ def test_ladder_and_resampler_raise_under_tf32_on_card(card, switch):
         else:
             torch.set_float32_matmul_precision("high")
         with pytest.raises(RuntimeError, match="full float32"):
-            matscale.scale_y420p(planes, plan)
+            matscale.products(*planes, plan)
         with pytest.raises(RuntimeError, match="full float32"):
             rs.process(np.zeros((2, 4096), np.float32))
+        got_tf32 = matscale.scale_y420p(planes, plan)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision(before)
-    got = matscale.scale_y420p(planes, plan)
     want = _plain_scale(card, planes, (1920, 1080), (640, 360))
+    assert all(torch.equal(g, w) for g, w in zip(got_tf32, want))
+    dense = matscale.products(*planes, plan)
     assert max(int((g.int() - w.int()).abs().max())
-               for g, w in zip(got, want)) <= 1
+               for g, w in zip(dense, want)) <= 1
 
 
 def test_batched_fold_equals_host_on_card(card):
@@ -506,10 +518,56 @@ def test_src_device_route_bookkeeping_on_card(card):
         assert np.abs(a.data()[0].astype(int) - b.data()[0].astype(int)).max() <= 1
 
 
+def _cell_unis(n, stream, cell, rng):
+    """Per-cell uniforms: identity, half opacity, an aspect inset with a
+    fill colour and a border, an offset rect overhanging the cell's top and
+    bottom, one overhanging its right edge; cells 0 and 1 take the second
+    and the fourth."""
+    tw, th = cell
+    kinds = [
+        lambda: identity_uniforms(stream, cell),
+        lambda: identity_uniforms(stream, cell, opacity=0.5),
+        lambda: rect_uniforms(stream, cell, x=1.25, y=2.25, w=tw - 2.5,
+                              h=th - 4.5, fill_color=(0.9, 0.2, 0.1, 0.6),
+                              border=(0.25, 0.25, tw - 0.5, th - 0.5)),
+        lambda: rect_uniforms(stream, cell, x=3.25, y=-1.75, w=tw * 0.75,
+                              h=th * 1.25, opacity=0.8),
+        lambda: rect_uniforms(stream, cell, x=tw * 0.5 + 0.25, y=0.25,
+                              w=tw * 0.75, h=th * 0.5, opacity=0.9),
+    ]
+    picks = [1, 3] + [int(k) for k in rng.integers(0, len(kinds), n)]
+    return np.stack([kinds[k]().pack() for k in picks[:n]])
+
+
+@pytest.mark.parametrize("n", [1, 5, 40, 64])
+@pytest.mark.parametrize("cell", [(240, 136), (34, 18)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_cell_launch_matches_per_cell_plain_fold_on_card(card, cell, n):
+    """Each cell of the stack bit for bit the plain composite of its source
+    alone onto a cleared cell, with opacity, fill, offset and overhanging
+    cells; one launch per 32 cells."""
+    rng = np.random.default_rng(n)
+    ys, us, vs = _y420p(rng, 192, 108, card, n)
+    unis = _cell_unis(n, (192, 108), cell, rng)
+    launches, calls = frame.launches, composite.calls
+    got = frame.composite_cells_cuda(cell, [ys, us, vs], PF.y420p, unis)
+    assert frame.launches == launches + -(-n // CAP)
+    assert composite.calls == calls
+    want = [composite.composite_stack_torch(
+        PF.y420p, cell, [([ys[i], us[i], vs[i]], PF.y420p, unis[i])], card)
+        for i in range(n)]
+    tw, th = cell
+    for g, r in zip(got, (th, th // 2, th // 2)):
+        assert g.is_cuda and g.shape[0] == n * r
+    for i, w in enumerate(want):
+        for g, wp, r in zip(got, w, (th, th // 2, th // 2)):
+            assert torch.equal(g[i * r:(i + 1) * r], wp)
+
+
 @pytest.mark.parametrize("n", [16, 14], ids=["aligned 16", "blank-fill 14"])
 def test_wall_plan_and_per_cell_paths_on_card(card, n):
-    """Plan path <= 1 LSB against the plain composite of each stream;
-    per-cell path 0 LSB with one frame-kernel launch per stream; audio
+    """Both paths are one cell launch (n <= 32), no product and no plain
+    call, each tile 0 LSB against the plain composite of its stream; audio
     equal to the host sum."""
     rng = np.random.default_rng(n)
     sw, sh = 192, 108
@@ -520,11 +578,12 @@ def test_wall_plan_and_per_cell_paths_on_card(card, n):
     tw, th = wall.tile
     unis = wall.default_uniforms()
     unis[0] = identity_uniforms((sw, sh), (tw, th), opacity=0.5).pack()
-    launches = frame.launches
+    launches, products, calls = frame.launches, matscale.calls, composite.calls
     plan_out = wall.step(ys, us, vs, wall.shard(pcm))
-    assert frame.launches == launches
+    assert frame.launches == launches + 1
     cell_out = wall.step(ys, us, vs, wall.shard(pcm), uniforms=unis)
-    assert frame.launches == launches + n
+    assert frame.launches == launches + 2
+    assert (matscale.calls, composite.calls) == (products, calls)
     host = np.clip(pcm.astype(np.int64).sum(0), -32768, 32767)
     for out in (plan_out, cell_out):
         assert out[3].is_cuda and np.array_equal(out[3].cpu().numpy(), host)
@@ -538,8 +597,7 @@ def test_wall_plan_and_per_cell_paths_on_card(card, n):
             continue
         planes = [ys[s], us[s], vs[s]]
         want = _plain_scale(card, planes, (sw, sh), (tw, th))
-        assert max(int((g.int() - w.int()).abs().max())
-                   for g, w in zip(cells, want)) <= 1
+        assert all(torch.equal(g, w) for g, w in zip(cells, want))
         want_k = composite.composite_stack_torch(
             PF.y420p, (tw, th), [(planes, PF.y420p, unis[s])], card)
         assert all(torch.equal(g, w) for g, w in zip(cells_k, want_k))
