@@ -79,7 +79,14 @@ started together) and drives the port's paths at full size:
   publishers of 5 s of 1080p30 AVC at ~6 Mbit/s and AAC at ~128 kbit/s,
   every recorded file byte for byte what its publisher sent; and four of those streams through a flavor
   push, back byte-identical.  ``serve`` is host-only and runs in a child,
-  so nothing forks this process after CUDA is initialised.
+  so nothing forks this process after CUDA is initialised;
+* the live tick's host profile (phase 25): phase 4's station on the
+  Composer, 10 warm video ticks, then three windows of 60: host ms per
+  video tick (p50 and p99 of the steps that mix a frame, and all host work
+  a tick with the inputs' publishing), host microseconds a tick of each
+  stage (cProfile), device busy ms and the device's idle share
+  (torch.profiler's CUDA activities), with phase 4's launch, plain-call
+  and 0 LSB checks.
 
 Every kernel comparison is exact: the frame kernels are bit-exact against
 the plain version, so one differing pixel fails the run; the float32
@@ -96,6 +103,7 @@ device; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -2219,23 +2227,330 @@ def network_phases(dev, smi):
     return rows
 
 
+# --- phases 4, 8, 24 and 25: the live station through the Composer ---------
+
+class LiveStation:
+    """The live scene through the port's Composer on a StepClock of 10 ms:
+    a 1920x1080 ``out_fmt`` canvas at 30 fps, four 1080p y420p cameras
+    (``host_sets``: two sets of numpy planes, alternating) scaled 2:1 into
+    the quadrants at opacity 0.9 with new frames every third step (every
+    video tick), the RGBA lower third ``ov_host`` (``start``), and 48 kHz
+    stereo s16 audio in 10 ms frames from four assets (``tone``).  The
+    mixer's composite call is recorded in ``last_call``; ``mixed`` counts
+    the mixed frames, and ``frames`` and ``mixed_audio`` hold every one, or
+    with ``keep=False`` the last, as a station that sends its frames on
+    and drops them holds no more on the card."""
+
+    def __init__(self, out_fmt, host_sets, ov_host, tone, keep=True):
+        from swiftvideo_tpu_torch import core, media
+        from swiftvideo_tpu_torch.compose import Composer
+        from swiftvideo_tpu_torch.core import (Bus, EventBox, StepClock,
+                                               TimePoint, Tx)
+        from swiftvideo_tpu_torch.mix import video_mixer
+        from swiftvideo_tpu_torch.scene import (Composition, Element,
+                                                ElementState, Scene)
+        # the port's modules, imported once: feed() runs in the timed steps
+        self.core, self.media = core, media
+        self.host_sets, self.ov_host, self.tone = host_sets, ov_host, tone
+        self.clock = StepClock(TimePoint(480, 48000))
+        self.audio_bus, self.picture_bus = Bus(self.clock), Bus(self.clock)
+        elements = tuple(
+            Element(name=f"cam{s}", z_index=s, initial_state=ElementState(
+                pic_pos=((s % 2) * W / 2, (s // 2) * H / 2),
+                size=(W / 2, H / 2), transparency=0.1))
+            for s in range(4)) + (
+            Element(name="lower_third", z_index=10, initial_state=ElementState(
+                pic_pos=(0.0, float(H - OV_H - 40)),
+                size=(float(W), float(OV_H)))),)
+        comp = Composition(name="live", canvas_size=(W, H),
+                           frame_duration=TimePoint(1000, 30000),
+                           audio_frame_duration=TimePoint(480, 48000),
+                           sample_rate=48000, channel_count=2,
+                           scenes=(Scene(name="main", elements=elements),),
+                           initial_scene="main")
+        # no context given: the Composer takes the card by default
+        self.composer = Composer(self.clock, workspace_id="w",
+                                 composition=comp, audio_bus=self.audio_bus,
+                                 picture_bus=self.picture_bus,
+                                 output_format=out_fmt)
+        if self.composer.ctx.device.type != "cuda":
+            fail(f"the Composer's default device is {self.composer.ctx.device}")
+        self.frames, self.mixed_audio, self.mixed = [], [], 0
+
+        def hold(out, sample):
+            if not keep:
+                out.clear()
+            out.append(sample)
+
+        def on_frame(s):
+            if s.asset_id() != "live":
+                return EventBox.nothing(None)
+            self.mixed += 1
+            hold(self.frames, s)
+            return EventBox.just(s)
+
+        def on_audio(s):
+            if s.asset_id() != "live":
+                return EventBox.nothing(None)
+            hold(self.mixed_audio, s)
+            return EventBox.just(s)
+
+        # the buses hold their subscribers weakly
+        self._keep = [self.picture_bus.subscribe(Tx(on_frame)),
+                      self.audio_bus.subscribe(Tx(on_audio))]
+        for s in range(4):
+            self.composer.bind(f"cam{s}", f"cam{s}")
+        self.composer.bind("lt", "lower_third")
+        self.last_call = {}
+        self._mixer = video_mixer
+        self._composite = video_mixer.composite_frame
+
+        def spy(ctx_, fmt, size, sources, target=None):
+            self.last_call.update(out_fmt=fmt, size=size, sources=sources)
+            return self._composite(ctx_, fmt, size, sources, target)
+
+        video_mixer.composite_frame = spy
+        self.audio_pts = TimePoint(0, 48000)
+        self.steps = 0
+
+    def picture(self, asset, fmt, planes):
+        m = self.media
+        h, w = planes[0].shape[:2]
+        img = m.ImageBuffer(pixel_format=fmt, buffer_type=m.BufferType.cpu,
+                            size=(w, h), planes=tuple(m.planes_for_format(
+                                fmt, (w, h))), buffers=tuple(planes))
+        return m.PictureSample(img, asset, "w",
+                               time_point=self.clock.current(),
+                               pts_value=self.clock.current())
+
+    def start(self):
+        """Publish the lower third (once: its Repeater holds it)."""
+        self.picture_bus.append(self.core.EventBox.just(self.picture(
+            "lt", self.media.PixelFormat.RGBA, [self.ov_host])))
+
+    def feed(self):
+        """Publish this step's inputs: the four cameras' next frames every
+        third step, and a 10 ms frame from each audio asset."""
+        c, m = self.core, self.media
+        if self.steps % 3 == 0:
+            for s, planes in enumerate(
+                    self.host_sets[(self.steps // 3) % 2]):
+                self.picture_bus.append(c.EventBox.just(
+                    self.picture(f"cam{s}", m.PixelFormat.y420p, planes)))
+        for k in range(4):
+            pcm = np.repeat(self.tone[k], 2)
+            self.audio_bus.append(c.EventBox.just(m.AudioSample(
+                buffers=(pcm,), frequency=48000, channels=2,
+                format=m.AudioFormat.s16i, sample_count=480,
+                pts_value=self.audio_pts, id_asset=f"cam{k}",
+                id_workspace="w")))
+        self.audio_pts = self.audio_pts + c.TimePoint(480, 48000)
+
+    def step(self) -> bool:
+        """One clock step; True when it mixed a video frame."""
+        n = self.mixed
+        self.clock.step()
+        self.steps += 1
+        return self.mixed > n
+
+    def close(self):
+        self._mixer.composite_frame = self._composite
+        self.composer.close()
+        self._keep = None
+
+
+def check_station(station, out_fmt, launches, plain_calls, dev):
+    """Fail unless every video tick was one frame-kernel launch, no tick took
+    the plain composite, every frame holds CUDA tensors, and the last tick's
+    five sources give the last frame within LSB of the plain version.
+    Returns (max abs error, pixels above 0) of that frame."""
+    from swiftvideo_tpu_torch.media import BufferType
+    from swiftvideo_tpu_torch.ops import composite
+    frames, last_call = station.frames, station.last_call
+    if launches != station.mixed:
+        fail(f"{out_fmt.value}: frame kernel launches {launches} != video "
+             f"ticks {station.mixed}")
+    if plain_calls != 0:
+        fail(f"{out_fmt.value}: {plain_calls} ticks took the plain "
+             "composite")
+    if not all(isinstance(p, torch.Tensor) and p.is_cuda
+               and f.buffer_type() == BufferType.gpu
+               for f in frames for p in f.planes()):
+        fail(f"{out_fmt.value}: a mixed frame does not hold CUDA tensors")
+    if len(last_call["sources"]) != 5:
+        fail(f"last tick composited {len(last_call['sources'])} sources, "
+             "not 5")
+    ref = composite.composite_stack_torch(last_call["out_fmt"],
+                                          last_call["size"],
+                                          last_call["sources"], dev)
+    err, above = max_err(frames[-1].planes(), ref)
+    if err > LSB:
+        fail(f"{out_fmt.value}: last mixed frame vs plain max abs err {err}")
+    return err, above
+
+
+# phase 25: the stages whose host time the live tick's profile reports, as
+# (label, module of the port, attribute path); a tree that lacks one prints
+# it as absent
+TICK_STAGES = (
+    ("clock.step", "core.clock", "StepClock.step"),
+    ("Bus.append", "core.bus", "Bus.append"),
+    ("GPUBarrierUpload._impl", "ops.barriers", "GPUBarrierUpload._impl"),
+    ("upload", "ops.barriers", "upload"),
+    ("Repeater._tick", "mix.repeater", "Repeater._tick"),
+    ("PictureAnimator._impl", "mix.animator", "PictureAnimator._impl"),
+    ("VideoMixer._mix", "mix.video_mixer", "VideoMixer._mix"),
+    ("registry.composite_frame", "ops.registry", "composite_frame"),
+    ("frame.composite_frame_cuda", "ops.frame", "composite_frame_cuda"),
+    ("frame._check", "ops.frame", "_check"),
+    ("frame.descriptors", "ops.frame", "descriptors"),
+    ("frame.pack_params", "ops.frame", "pack_params"),
+    ("frame._launch", "ops.frame", "_launch"),
+    ("SoundAnimator._impl", "mix.animator", "SoundAnimator._impl"),
+    ("AudioMixer._mix", "mix.audio_mixer", "AudioMixer._mix"),
+    ("AudioMixer._run_mix", "mix.audio_mixer", "AudioMixer._run_mix"))
+TICK_WARM, TICK_WINDOW = 10, 60
+
+
+def stage_keys():
+    """{label: pstats key (file, first line, name)} of each TICK_STAGES
+    function the imported port has."""
+    import importlib
+    keys = {}
+    for label, mod, path in TICK_STAGES:
+        obj = importlib.import_module(f"swiftvideo_tpu_torch.{mod}")
+        for part in path.split("."):
+            obj = getattr(obj, part, None)
+        code = getattr(obj, "__code__", None)
+        if code is not None:
+            keys[label] = (code.co_filename, code.co_firstlineno, code.co_name)
+    return keys
+
+
+def union_ms(spans):
+    """Milliseconds covered by the union of (start us, end us) spans."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def tick_profile(dev, host_sets, ov_host, tone, warm=TICK_WARM,
+                 window=TICK_WINDOW):
+    """The live station's y420p tick on the card, three windows of
+    ``window`` video ticks after ``warm``: the host clock around every step
+    (no sync inside; the inputs' publishing timed apart), cProfile over the
+    second, torch.profiler's CUDA activities over the third.  Fails as
+    phase 4 does (launches != ticks, a plain composite, the last frame off
+    the plain version).  Returns a dict of the results."""
+    import cProfile
+    import pstats
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from swiftvideo_tpu_torch.media import PixelFormat
+    from swiftvideo_tpu_torch.ops import composite, frame
+    station = LiveStation(PixelFormat.y420p, host_sets, ov_host, tone,
+                          keep=False)
+
+    def run(n_ticks):
+        """(video-tick step ms, other step ms, feed ms) over n_ticks."""
+        tick, other, feed = [], [], []
+        got = 0
+        while got < n_ticks:
+            t0 = time.perf_counter()
+            station.feed()
+            t1 = time.perf_counter()
+            mixed = station.step()
+            t2 = time.perf_counter()
+            feed.append((t1 - t0) * 1e3)
+            (tick if mixed else other).append((t2 - t1) * 1e3)
+            got += mixed
+        return tick, other, feed
+
+    frame.launches = composite.calls = 0
+    station.start()
+    run(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick, other, feed = run(window)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof = cProfile.Profile()
+    prof.enable()
+    run(window)
+    prof.disable()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as tprof:
+        t1 = time.perf_counter()
+        run(window)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    launches, plain_calls, ticks = (frame.launches, composite.calls,
+                                    station.mixed)
+    station.close()
+    err, above = check_station(station, PixelFormat.y420p, launches,
+                               plain_calls, dev)
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in tprof.events() if e.device_type == DeviceType.CUDA]
+    busy = union_ms([(a, b) for _n, a, b in spans])
+    h2d = sum(b - a for n, a, b in spans if "HtoD" in n) / 1e3
+    kern = sum(b - a for n, a, b in spans if frame.YUV_KERNEL in n) / 1e3
+    stats = pstats.Stats(prof).stats
+    stages = {label: stats[key][3] / window * 1e6 if key in stats else 0.0
+              for label, key in stage_keys().items()}
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
+    self_us = [(f"{os.path.basename(k[0])}:{k[1]}({k[2]})",
+                v[2] / window * 1e6) for k, v in top]
+    return {"window": window, "ticks": ticks, "launches": launches,
+            "plain": plain_calls,
+            "err": err, "above": above,
+            "tick_p50_ms": float(np.percentile(tick, 50)),
+            "tick_p99_ms": float(np.percentile(tick, 99)),
+            "host_ms_per_tick": (sum(tick) + sum(other) + sum(feed)) / window,
+            "feed_ms_per_tick": sum(feed) / window,
+            "audio_step_ms_per_tick": sum(other) / window,
+            "wall_ms_per_tick": wall / window,
+            "busy_ms_per_tick": busy / window,
+            "h2d_ms_per_tick": h2d / window,
+            "kernel_ms_per_tick": kern / window,
+            "idle_share": 1.0 - busy / prof_wall,
+            "device_activities": len(spans),
+            "stage_us": stages, "self_us": self_us}
+
+
+def tick_line(r, smi) -> str:
+    """Phase 25's line from ``tick_profile``'s dict."""
+    return (f"host ms per video tick: step p50 {r['tick_p50_ms']:.4f} p99 "
+            f"{r['tick_p99_ms']:.4f}, all host work {r['host_ms_per_tick']:.4f}"
+            f" (inputs' publishing {r['feed_ms_per_tick']:.4f}, audio-only "
+            f"steps {r['audio_step_ms_per_tick']:.4f}), wall "
+            f"{r['wall_ms_per_tick']:.4f} | device busy "
+            f"{r['busy_ms_per_tick']:.4f} ms a tick, "
+            f"{r['busy_ms_per_tick'] * r['window']:.2f} over the window (H2D "
+            f"{r['h2d_ms_per_tick']:.4f}, frame kernel "
+            f"{r['kernel_ms_per_tick']:.4f}; {r['device_activities']} "
+            f"activities), idle share {r['idle_share']:.1%} | host us a tick "
+            f"(cProfile, cumulative): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in r["stage_us"].items())
+            + " | top self us a tick: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in r["self_us"])
+            + f" | launches {r['launches']} for {r['ticks']} ticks, plain "
+            f"composites {r['plain']}, last frame vs plain err {r['err']} "
+            f"above0 {r['above']} | {smi}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA card")
-    from swiftvideo_tpu_torch.compose import Composer
-    from swiftvideo_tpu_torch.core import Bus, EventBox, StepClock, TimePoint, Tx
-    from swiftvideo_tpu_torch.media import (AudioFormat, AudioSample,
-                                            BufferType, ImageBuffer,
-                                            PictureSample, PixelFormat,
-                                            create_picture_sample,
-                                            planes_for_format)
-    from swiftvideo_tpu_torch.mix import video_mixer
+    from swiftvideo_tpu_torch.media import (BufferType, PixelFormat,
+                                            create_picture_sample)
     from swiftvideo_tpu_torch.ops import (audio, composite, frame, motion, nvcc,
                                           registry)
     from swiftvideo_tpu_torch.ops.uniforms import ImageUniforms, rect_uniforms
-    from swiftvideo_tpu_torch.scene import (Composition, Element, ElementState,
-                                            Scene)
     from swiftvideo_tpu_torch.utils import matrix as m4
+    from swiftvideo_tpu_torch import compose, mix, scene  # noqa: F401 (guarded below)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax",
                                                              "swiftvideo_tpu")]
@@ -2329,107 +2644,29 @@ def main() -> None:
     def drive_composer(out_fmt, n_ticks):
         """n_ticks video ticks of the live scene onto an out_fmt canvas;
         returns (frames, audio frames, kernel launches, plain composites,
-        clock steps, host wall s, the last tick's composite call)."""
-        clock = StepClock(TimePoint(480, 48000))
-        audio_bus, picture_bus = Bus(clock), Bus(clock)
-        elements = tuple(
-            Element(name=f"cam{s}", z_index=s, initial_state=ElementState(
-                pic_pos=((s % 2) * 960.0, (s // 2) * 540.0),
-                size=(960.0, 540.0), transparency=0.1))
-            for s in range(4)) + (
-            Element(name="lower_third", z_index=10, initial_state=ElementState(
-                pic_pos=(0.0, float(H - OV_H - 40)),
-                size=(float(W), float(OV_H)))),)
-        comp = Composition(name="live", canvas_size=(W, H),
-                           frame_duration=TimePoint(1000, 30000),
-                           audio_frame_duration=TimePoint(480, 48000),
-                           sample_rate=48000, channel_count=2,
-                           scenes=(Scene(name="main", elements=elements),),
-                           initial_scene="main")
-        # no context given: the Composer takes the card by default
-        composer = Composer(clock, workspace_id="w", composition=comp,
-                            audio_bus=audio_bus, picture_bus=picture_bus,
-                            output_format=out_fmt)
-        if composer.ctx.device.type != "cuda":
-            fail(f"the Composer's default device is {composer.ctx.device}")
-        frames, mixed_audio = [], []
-        # the buses hold their subscribers weakly
-        keep = [picture_bus.subscribe(Tx(
-                    lambda s: (frames.append(s), EventBox.just(s))[1]
-                    if s.asset_id() == "live" else EventBox.nothing(None))),
-                audio_bus.subscribe(Tx(
-                    lambda s: (mixed_audio.append(s), EventBox.just(s))[1]
-                    if s.asset_id() == "live" else EventBox.nothing(None)))]
-        for s in range(4):
-            composer.bind(f"cam{s}", f"cam{s}")
-        composer.bind("lt", "lower_third")
-        last_call = {}
-        mixer_composite = video_mixer.composite_frame
-
-        def spy(ctx_, fmt, size, sources, target=None):
-            last_call.update(out_fmt=fmt, size=size, sources=sources)
-            return mixer_composite(ctx_, fmt, size, sources, target)
-
-        def picture(asset, fmt, planes):
-            h, w = planes[0].shape[:2]
-            img = ImageBuffer(pixel_format=fmt, buffer_type=BufferType.cpu,
-                              size=(w, h), planes=tuple(planes_for_format(
-                                  fmt, (w, h))), buffers=tuple(planes))
-            return PictureSample(img, asset, "w", time_point=clock.current(),
-                                 pts_value=clock.current())
-
-        video_mixer.composite_frame = spy
-        audio_pts = TimePoint(0, 48000)
-        step = 0
+        clock steps, host wall s, the last frame's max abs error against
+        the plain version and its pixels above 0)."""
+        station = LiveStation(out_fmt, host_sets, ov_host, tone)
+        frames, mixed_audio = station.frames, station.mixed_audio
         frame.launches = 0
         motion.launches = 0
         composite.calls = 0
         t0 = time.perf_counter()
-        picture_bus.append(EventBox.just(picture("lt", PixelFormat.RGBA,
-                                                 [ov_host])))
+        station.start()
         while len(frames) < n_ticks:
-            if step % 3 == 0:
-                for s, planes in enumerate(host_sets[(step // 3) % 2]):
-                    picture_bus.append(EventBox.just(
-                        picture(f"cam{s}", PixelFormat.y420p, planes)))
-            for k in range(4):
-                pcm = np.repeat(tone[k], 2)
-                audio_bus.append(EventBox.just(AudioSample(
-                    buffers=(pcm,), frequency=48000, channels=2,
-                    format=AudioFormat.s16i, sample_count=480,
-                    pts_value=audio_pts, id_asset=f"cam{k}", id_workspace="w")))
-            audio_pts = audio_pts + TimePoint(480, 48000)
-            clock.step()
-            step += 1
-            if step > 10 * n_ticks:
-                fail(f"only {len(frames)} frames after {step} clock steps")
+            station.feed()
+            station.step()
+            if station.steps > 10 * n_ticks:
+                fail(f"only {len(frames)} frames after {station.steps} clock "
+                     "steps")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, plain_calls = frame.launches, composite.calls
-        video_mixer.composite_frame = mixer_composite
-        composer.close()
-        del keep
-        if launches != len(frames):
-            fail(f"{out_fmt.value}: frame kernel launches {launches} != video "
-                 f"ticks {len(frames)}")
-        if plain_calls != 0:
-            fail(f"{out_fmt.value}: {plain_calls} ticks took the plain "
-                 "composite")
-        if not all(isinstance(p, torch.Tensor) and p.is_cuda
-                   and f.buffer_type() == BufferType.gpu
-                   for f in frames for p in f.planes()):
-            fail(f"{out_fmt.value}: a mixed frame does not hold CUDA tensors")
-        if len(last_call["sources"]) != 5:
-            fail(f"last tick composited {len(last_call['sources'])} sources, "
-                 "not 5")
-        ref = composite.composite_stack_torch(last_call["out_fmt"],
-                                              last_call["size"],
-                                              last_call["sources"], dev)
-        last = frames[-1].planes()
-        err, above = max_err(last, ref)
-        if err > LSB:
-            fail(f"{out_fmt.value}: last mixed frame vs plain max abs err {err}")
-        return frames, mixed_audio, launches, plain_calls, step, wall, err, above
+        station.close()
+        err, above = check_station(station, out_fmt, launches, plain_calls,
+                                   dev)
+        return (frames, mixed_audio, launches, plain_calls, station.steps,
+                wall, err, above)
 
     frames, mixed_audio, launches, plain_calls, steps, wall, main_err, \
         main_above = drive_composer(PixelFormat.y420p, 60)
@@ -2695,6 +2932,13 @@ def main() -> None:
     packed_phase(dev, ctx, rng)
     station_phase(dev, rng, smi)
     net_rows = network_phases(dev, smi)
+
+    # phase 25: the live tick's host profile (phase 4's station)
+    t0 = time.perf_counter()
+    tick = tick_profile(dev, host_sets, ov_host, tone)
+    print(f"[25 live tick host profile, {TICK_WINDOW} video ticks a window "
+          f"after {TICK_WARM}; {time.perf_counter() - t0:.1f} s] "
+          + tick_line(tick, smi), flush=True)
 
     frame_rows = [
         ("K1", "frame_composite (K1: planar-yuv cameras)", cam_srcs,

@@ -47,6 +47,11 @@ from ..utils.matrix import audio_position_gain
 from ..ops.audio import (apply_mix_s16, channel_gains, mix_s16_device,
                          mix_s16_device_windowed)
 
+# channel gains a mixer keeps, by source transform: a still source's gains
+# are computed once; a fading or panning one, whose transform changes every
+# tick, fills the table and it starts again
+GAIN_CACHE = 64
+
 
 class AudioMixer(Source):
     def __init__(self, clock: Clock, *, workspace_id: str,
@@ -102,6 +107,12 @@ class AudioMixer(Source):
         # bit-for-bit.
         self.dedup_overlap = dedup_overlap
         self._mixed_until: Dict[str, int] = {}
+        self._gains: Dict[tuple, np.ndarray] = {}
+        # each queued sample's placement on the mixer's timeline at the last
+        # tick, by id: (sample, offset, delay, normalized pts, normalized
+        # end).  A sample stays queued for several ticks and its placement
+        # changes only with its asset's offset (a new object on re-anchor)
+        self._placed: Dict[int, tuple] = {}
         self._lock = threading.RLock()
         self._closed = False
 
@@ -153,6 +164,21 @@ class AudioMixer(Source):
     def close(self) -> None:
         self._closed = True
         self.stats.close()
+
+    def gains(self, transform: np.ndarray) -> np.ndarray:
+        """The per-channel gains (read-only) of a source with this 3x3
+        audio transform (mix.audio.swift:228-258), kept by value."""
+        t = np.asarray(transform)
+        key = (t.dtype.str, t.shape, t.tobytes())
+        g = self._gains.get(key)
+        if g is None:
+            g = channel_gains(*audio_position_gain(t),
+                              channel_count=self.channel_count)
+            g.flags.writeable = False
+            if len(self._gains) >= GAIN_CACHE:
+                self._gains.clear()
+            self._gains[key] = g
+        return g
 
     # --- mix execution ----------------------------------------------------
     def _run_mix(self, contribs, backing: np.ndarray) -> None:
@@ -229,6 +255,7 @@ class AudioMixer(Source):
         new_marks: Dict[str, int] = {}
         # ordered (input_view, gains, back_off, in_off) per target buffer
         contributions: List[List] = [[] for _ in range(num_buffers)]
+        placed: Dict[int, tuple] = {}
         for asset_id, queued in assets.items():
             offset = offsets.get(asset_id)
             if offset is None:
@@ -247,16 +274,20 @@ class AudioMixer(Source):
             hw = (self._mixed_until.get(asset_id)
                   if self.dedup_overlap else None)
             for work in queued:
-                work_duration = rescale(
-                    TimePoint(work.number_samples(), work.sample_rate()),
-                    work.pts().scale)
-                normalized_pts = work.pts() + offset + self.delay
-                normalized_end = normalized_pts + rescale(work_duration,
-                                                          normalized_pts.scale)
+                place = self._placed.get(id(work))
+                if place is None or place[0] is not work \
+                        or place[1] is not offset or place[2] is not self.delay:
+                    work_duration = rescale(
+                        TimePoint(work.number_samples(), work.sample_rate()),
+                        work.pts().scale)
+                    normalized_pts = work.pts() + offset + self.delay
+                    place = (work, offset, self.delay, normalized_pts,
+                             normalized_pts + rescale(work_duration,
+                                                      normalized_pts.scale))
+                placed[id(work)] = place
+                normalized_pts, normalized_end = place[3], place[4]
                 if normalized_end >= mix_ts and normalized_pts < mix_end:
-                    gains = channel_gains(
-                        *audio_position_gain(work.transform),
-                        channel_count=self.channel_count)
+                    gains = self.gains(work.transform)
                     pts_delta = normalized_pts - mix_ts
                     offset_samples = rescale(pts_delta, self.sample_rate).value
                     in_ipf = bytes_per_sample(work.format,
@@ -321,6 +352,7 @@ class AudioMixer(Source):
             elif self.dedup_overlap and hw is not None:
                 new_marks[asset_id] = hw
             result[asset_id] = unused
+        self._placed = placed
         for idx, contribs in enumerate(contributions):
             self._run_mix(contribs, buffers[idx])
         with self._lock:

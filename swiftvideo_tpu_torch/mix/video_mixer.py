@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import threading
 import uuid
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +33,15 @@ from ..media.pixel import PixelFormat, planes_for_format
 from ..ops.registry import (ComputeContext, composite_frame,
                             make_compute_context, to_device)
 from ..ops.uniforms import ImageUniforms
+
+# packed uniform vectors a mixer keeps, most recently used first: a live
+# scene's sources with room to spare, while an animated element, whose
+# matrices change every tick, adds one a tick and cannot grow it further
+UNIFORM_CACHE = 64
+
+
+def _value_key(a: np.ndarray) -> tuple:
+    return a.dtype.str, a.shape, a.tobytes()
 
 
 class VideoMixer(Source):
@@ -57,6 +67,8 @@ class VideoMixer(Source):
         self.epoch = rescale(epoch_tp, frame_duration.scale)
         # two generations of per-revision sample maps (mix.video.swift:44)
         self._samples: List[Dict[str, PictureSample]] = [{}, {}]
+        self._uniforms: "OrderedDict[tuple, Optional[np.ndarray]]" = \
+            OrderedDict()
         self._lock = threading.RLock()
         self._closed = False
 
@@ -83,6 +95,40 @@ class VideoMixer(Source):
         self._closed = True
         self.stats.close()
 
+    def uniforms(self, img: PictureSample) -> Optional[np.ndarray]:
+        """The source's packed [29] uniform vector (read-only), or None for
+        a degenerate transform (a singular matrix: a zero-size element).
+        Kept by value (the three matrices, the fill, the input and output
+        size, the opacity) for the ``UNIFORM_CACHE`` most recent sources,
+        so a still source is inverted once, not every tick; the vector is
+        the one a fresh ``np.linalg.inv`` of each matrix gives."""
+        fill = np.asarray(img.fill_color(), np.float32)
+        key = (_value_key(img.matrix()), _value_key(img.texture_matrix()),
+               _value_key(img.border_matrix()), fill.tobytes(),
+               tuple(img.size()), self.output_size, float(img.opacity()))
+        try:
+            self._uniforms.move_to_end(key)
+            return self._uniforms[key]
+        except KeyError:
+            pass
+        try:
+            u = ImageUniforms(
+                transform_inv=np.linalg.inv(
+                    img.matrix().astype(np.float64)).astype(np.float32),
+                texture_inv=np.linalg.inv(
+                    img.texture_matrix().astype(np.float64)).astype(np.float32),
+                border_inv=np.linalg.inv(
+                    img.border_matrix().astype(np.float64)).astype(np.float32),
+                fill_color=fill, input_size=img.size(),
+                output_size=self.output_size, opacity=img.opacity()).pack()
+            u.flags.writeable = False
+        except np.linalg.LinAlgError:
+            u = None
+        self._uniforms[key] = u
+        if len(self._uniforms) > UNIFORM_CACHE:
+            self._uniforms.popitem(last=False)
+        return u
+
     # --- tick (mix.video.swift:95-131) -----------------------------------
     def _mix(self, at: ClockTickEvent) -> None:
         if self._closed:
@@ -101,18 +147,8 @@ class VideoMixer(Source):
         try:
             sources = []
             for img in images:
-                try:
-                    uni = ImageUniforms(
-                        transform_inv=np.linalg.inv(
-                            img.matrix().astype(np.float64)).astype(np.float32),
-                        texture_inv=np.linalg.inv(
-                            img.texture_matrix().astype(np.float64)).astype(np.float32),
-                        border_inv=np.linalg.inv(
-                            img.border_matrix().astype(np.float64)).astype(np.float32),
-                        fill_color=np.asarray(img.fill_color(), np.float32),
-                        input_size=img.size(), output_size=self.output_size,
-                        opacity=img.opacity())
-                except np.linalg.LinAlgError:
+                uni = self.uniforms(img)
+                if uni is None:
                     # degenerate transform (zero-size element): skip the
                     # source, keep the frame
                     continue

@@ -13,9 +13,10 @@ of one source shape, the exact 2:1 limit of the RGBA-target kernel):
 sources of any format, scale or rotation share a launch.
 
 Launch path: the per-source table (``descriptors``, one 192-byte row per
-source) and a 64-byte header are packed on the host into one
-``FrameParams`` (``pack_params``) that the kernel takes by value as a
-``__grid_constant__`` parameter, so a call neither pins nor copies a table.
+source, its boxes and uniforms cached by value) and a 64-byte header are
+packed on the host into one ``FrameParams`` (``pack_params``) that the
+kernel takes by value as a ``__grid_constant__`` parameter, so a call
+neither pins nor copies a table.
 One launch takes up to ``CAPACITY`` sources; a longer stack runs as
 consecutive launches onto the same target, each after the first in chained
 mode (``launch_plan``).
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 from functools import lru_cache
 from typing import List, Optional, Tuple
 
@@ -76,6 +78,10 @@ _HEADER = np.dtype([("out", "<u8", 3), ("n", "<i4"), ("h", "<i4"),
                     ("cell_w", "<i4"), ("pad", "<i4")])
 assert _HEADER.itemsize == 64
 _PARAMS = np.dtype([("head", _HEADER), ("src", _DESC, CAPACITY)])
+# a _DESC row's plane pointers, format code and dims as a struct (its boxes
+# and uniforms follow, ``_row_tail``)
+_ROW_HEAD = struct.Struct("<3Qi4i")
+assert _ROW_HEAD.size == _DESC.fields["box"][1]
 
 _SRC_CODES = {PixelFormat.y420p: 0, PixelFormat.y422p: 0, PixelFormat.y444p: 0,
               PixelFormat.nv12: 1, PixelFormat.nv21: 2,
@@ -213,27 +219,28 @@ def cell_boxes(u: np.ndarray, cell_size: Tuple[int, int]) -> np.ndarray:
     return boxes
 
 
+@lru_cache(maxsize=1024)
+def _row_tail(u: bytes, h: int, w: int, ch: int, cw: int) -> bytes:
+    """The boxes and uniforms of a _DESC row: the packed uniform vector
+    ``u`` (float32 bytes) on an h x w luma and a ch x cw chroma grid.  A
+    live scene's sources keep their uniforms from frame to frame."""
+    boxes = _boxes(u[12 * 4:18 * 4], h, w, ch, cw)
+    return np.array(boxes, np.int32).tobytes() + u
+
+
 def descriptors(size: Tuple[int, int], sources,
                 out_fmt: PixelFormat) -> np.ndarray:
     """The kernel's per-source table (one _DESC row per source) for a
     ``size`` ``out_fmt`` target."""
-    table = np.zeros(len(sources), _DESC)
-    if not sources:
-        return table
-    ptrs, codes, dims, us = [], [], [], []
+    grids = (int(size[1]), int(size[0])) + chroma_grid(out_fmt, size)
+    rows = []
     for planes, fmt, uni in sources:
-        ptrs.append([t.data_ptr() for t in planes] + [0] * (3 - len(planes)))
-        codes.append(_SRC_CODES[fmt])
+        ptrs = [t.data_ptr() for t in planes] + [0] * (3 - len(planes))
         chroma = planes[1] if len(planes) > 1 else planes[0]
-        dims.append(tuple(planes[0].shape[:2]) + tuple(chroma.shape[:2]))
-        us.append(packed(uni))
-    u = np.stack(us)
-    table["plane"] = ptrs
-    table["fmt"] = codes
-    table["dims"] = dims
-    table["box"] = border_boxes(u, size, out_fmt)
-    table["u"] = u
-    return table
+        rows.append(_ROW_HEAD.pack(*ptrs, _SRC_CODES[fmt], *planes[0].shape[:2],
+                                   *chroma.shape[:2]))
+        rows.append(_row_tail(packed(uni).tobytes(), *grids))
+    return np.frombuffer(bytearray(b"".join(rows)), _DESC)
 
 
 def cell_descriptors(cell_size: Tuple[int, int], planes, fmt: PixelFormat,

@@ -160,7 +160,10 @@ def composite_frame(ctx: ComputeContext, out_fmt: PixelFormat, size,
 
 
 def to_device(planes, device: torch.device):
-    return [torch.as_tensor(p, device=device) for p in planes]
+    """The planes as tensors on ``device``; a tensor already there is passed
+    on as it is."""
+    return [p if isinstance(p, torch.Tensor) and p.device == device
+            else torch.as_tensor(p, device=device) for p in planes]
 
 
 # --- kernel execution -----------------------------------------------------

@@ -10,7 +10,8 @@ bookkeeping; the ladder's rungs (one frame-kernel launch each, 0 LSB
 against the plain composite; the products, kept as a comparison, within 1
 LSB and raising under the TF32 switches), the frame kernel's cell launch
 (0 LSB against the per-cell plain fold, one launch per 32 cells) and the
-mixing wall's default and per-cell paths through it (0 LSB).  Marked ``cuda``; they skip where there is no card.  Run them on the
+mixing wall's default and per-cell paths through it (0 LSB); the upload
+barrier's copies, many in flight at once (exact).  Marked ``cuda``; they skip where there is no card.  Run them on the
 card with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerance: 0 LSB for pixels (the frame kernels are bit-exact against the
 plain version), exact for motion vectors and audio.  The frame cases cover
@@ -27,8 +28,8 @@ from swiftvideo_tpu_torch.core import TimePoint
 from swiftvideo_tpu_torch.media import PixelFormat as PF
 from swiftvideo_tpu_torch.media.audio import AudioFormat, AudioSample
 from swiftvideo_tpu_torch.mix.src_audio import AudioSampleRateConversion
-from swiftvideo_tpu_torch.ops import (audio, composite, frame, matscale,
-                                      motion, registry, resample)
+from swiftvideo_tpu_torch.ops import (audio, barriers, composite, frame,
+                                      matscale, motion, registry, resample)
 from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms, rect_uniforms
 from swiftvideo_tpu_torch.parallel import MixingWall
 
@@ -610,3 +611,20 @@ def _cell(wall_planes, s, gw, tile):
     return [p[r * h:(r + 1) * h, c * w:(c + 1) * w]
             for p, (w, h) in zip(wall_planes, ((tw, th), (tw // 2, th // 2),
                                                (tw // 2, th // 2)))]
+
+
+def test_uploads_in_flight_equal_their_sources_on_card(card):
+    """Eight 1080p y420p frames, two alternating host buffers, uploaded
+    with no sync between them: once the card has run every copy, each
+    device tensor equals its source (a page-locked block reused while its
+    copy was in flight would not)."""
+    rng = np.random.default_rng(31)
+    frames = [[rng.integers(0, 256, s, np.int64).astype(np.uint8)
+               for s in ((1080, 1920), (540, 960), (540, 960))]
+              for _ in range(2)]
+    got = [[barriers.upload(p, card) for p in frames[k % 2]]
+           for k in range(8)]
+    torch.cuda.synchronize()
+    for k, planes in enumerate(got):
+        for d, p in zip(planes, frames[k % 2]):
+            assert d.is_cuda and np.array_equal(d.cpu().numpy(), p)
