@@ -36,9 +36,12 @@ started together) and drives the port's paths at full size:
   route's), and the mixing wall (config 5, 64 1080p streams onto a
   1920x1088 canvas of 240x136 tiles with 800 stereo samples each): its
   default and per-cell ticks each one cell launch of the frame kernel per
-  32 streams (two a tick), no product or plain call, every tile 0 LSB
-  against the plain composite of its stream, the audio equal to the host
-  sum, and 60 streams on the same grid (two launches, blank excess cells).
+  32 streams (two a tick) straight onto the canvas, no product, plain or
+  tile-assembly call, every tile 0 LSB against the plain composite of its
+  stream, the audio equal to the host sum, and 60 streams on the same grid
+  (two launches, the excess cells blank from the kernel's clear), each
+  tick on every batch of a ring of ``WALL_RING`` input batches and timed
+  over the ring (new frames at new addresses each tick).
   The dense products, the route these paths took before, run beside them
   as a comparison only (within 1 LSB), and ``F.grid_sample`` on the same
   inputs is timed as the library yardstick (within 1 LSB);
@@ -74,7 +77,8 @@ started together) and drives the port's paths at full size:
   its PNGs byte-identical between the two and equal to the same command
   under ``SV_DEVICE=cpu``; 64 RTMP publishers into the port's server, whose
   sessions seed the 64 1080p streams of the wall (per-cell and plan ticks:
-  two K1 launches each, each tile equal to its session's stream);
+  two K1 launches each straight onto the canvas, no tile assembled, each
+  tile equal to its session's stream);
   ``serve --record`` as a child (one worker, then two) taking 16
   publishers of 5 s of 1080p30 AVC at ~6 Mbit/s and AAC at ~128 kbit/s,
   every recorded file byte for byte what its publisher sent; and four of those streams through a flavor
@@ -102,6 +106,7 @@ device; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -138,6 +143,9 @@ BYTE_DOT_OPCODES = ("IDP",)        # __dp4a: a 4-byte dot product into an accumu
 LADDER_RUNGS = ((1280, 720), (854, 480), (640, 360))
 RESAMPLE_CHANNELS, RESAMPLE_IN = 128, 44100
 WALL_STREAMS, WALL_CANVAS, WALL_SAMPLES = 64, (1920, 1088), 800
+# the wall's ticks are timed over a ring of this many distinct input batches
+# (new frames at new addresses each tick, as a live wall gets them)
+WALL_RING = 3
 REPLACES = {"K1": "swiftvideo_tpu/ops/pallas_frame.py:127",
             "K2": "swiftvideo_tpu/ops/pallas_frame.py:1100",
             "K3": "swiftvideo_tpu/ops/pallas_frame.py:1524",
@@ -158,6 +166,55 @@ STATION_FRAMES, STATION_AUDIO = 8, 30
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def counting_assembly():
+    """A Counter of the wall's tile-assembly calls (``_rows_assemble``,
+    ``MixingWall._blank_fix``) made inside the block."""
+    from swiftvideo_tpu_torch.parallel import wall as wall_mod
+    seen = Counter()
+    rows, blank = wall_mod._rows_assemble, wall_mod.MixingWall._blank_fix
+
+    def rows_counted(*args, **kwargs):
+        seen["_rows_assemble"] += 1
+        return rows(*args, **kwargs)
+
+    def blank_counted(*args, **kwargs):
+        seen["_blank_fix"] += 1
+        return blank(*args, **kwargs)
+
+    wall_mod._rows_assemble = rows_counted
+    wall_mod.MixingWall._blank_fix = blank_counted
+    try:
+        yield seen
+    finally:
+        wall_mod._rows_assemble, wall_mod.MixingWall._blank_fix = rows, blank
+
+
+def wall_batches(dev, n, seed, count):
+    """``count`` batches of ``n`` random 1920x1080 y420p streams made on
+    the card, batch k from seed ``seed + k``: [(ys, us, vs)]."""
+    batches = []
+    for k in range(count):
+        gen = torch.Generator(device=dev).manual_seed(seed + k)
+        ys = torch.randint(0, 256, (n, H, W), dtype=torch.uint8, device=dev,
+                           generator=gen)
+        us, vs = (torch.randint(0, 256, (n, H // 2, W // 2), dtype=torch.uint8,
+                                device=dev, generator=gen) for _ in range(2))
+        batches.append((ys, us, vs))
+    return batches
+
+
+def ring_of(batches):
+    """A function returning the next batch of ``batches`` each call, in
+    turn."""
+    turn = [0]
+
+    def next_batch():
+        turn[0] = (turn[0] + 1) % len(batches)
+        return batches[turn[0]]
+    return next_batch
 
 
 def max_err(a, b):
@@ -682,13 +739,11 @@ def batch_phases(dev, smi, rng):
     if pcm_err > 1:
         fail(f"SRC device route PCM differs by {pcm_err} LSB")
 
-    # phase 15: the mixing wall (config 5), every stream, both paths
-    gen = torch.Generator(device=dev).manual_seed(15)
+    # phase 15: the mixing wall (config 5), every stream, both paths, over a
+    # ring of WALL_RING input batches (batch 0 from seed 15)
     n = WALL_STREAMS
-    ys = torch.randint(0, 256, (n, H, W), dtype=torch.uint8, device=dev,
-                       generator=gen)
-    us, vs = (torch.randint(0, 256, (n, H // 2, W // 2), dtype=torch.uint8,
-                            device=dev, generator=gen) for _ in range(2))
+    ring = wall_batches(dev, n, 15, WALL_RING)
+    ys, us, vs = ring[0]
     pcm = rng.integers(-32768, 32768, (n, 2 * WALL_SAMPLES),
                        np.int64).astype(np.int16)
     gains = rng.choice(np.float32([0.5, 1.0, 2.0]), n)
@@ -707,71 +762,111 @@ def batch_phases(dev, smi, rng):
         return [p[r * h:(r + 1) * h, c * w:(c + 1) * w] for p, (w, h) in zip(
             planes, ((tw, th), (tw // 2, th // 2), (tw // 2, th // 2)))]
 
-    def tick_plan():
-        return wall.step(ys, us, vs, audio_t, gains_t)
-
     unis = wall.default_uniforms()
     unis[0] = identity_uniforms((W, H), (tw, th), opacity=0.5).pack()
+    next_plan, next_cells = ring_of(ring), ring_of(ring)
+
+    def tick_plan():
+        return wall.step(*next_plan(), audio_t, gains_t)
 
     def tick_cells():
-        return wall.step(ys, us, vs, audio_t, gains_t, uniforms=unis)
+        return wall.step(*next_cells(), audio_t, gains_t, uniforms=unis)
 
     def counted(fn):
-        """fn's result and (K1 launches, product calls, plain composites)
-        it made, each count set to 0 just before."""
+        """fn's result and (K1 launches, product calls, plain composites,
+        tile-assembly calls) it made, each count set to 0 just before."""
         torch.cuda.synchronize()
         frame.launches = matscale.calls = composite.calls = 0
-        out = fn()
+        with counting_assembly() as assembly:
+            out = fn()
         torch.cuda.synchronize()
-        return out, (frame.launches, matscale.calls, composite.calls)
+        return out, (frame.launches, matscale.calls, composite.calls,
+                     sum(assembly.values()))
 
     tick_launches = len(frame.launch_plan(n))
-    plan_out, plan_counts = counted(tick_plan)
-    cell_out, cell_counts = counted(tick_cells)
-    for name, got in (("plan", plan_counts), ("per-cell", cell_counts)):
-        if got != (tick_launches, 0, 0):
-            fail(f"wall {name} tick: {got[0]} K1 launches (want "
-                 f"{tick_launches}), {got[1]} product calls, {got[2]} plain "
-                 f"composites")
+    plain_tiles = {}
+
+    def plain_tile(k, s, uni=None):
+        """The plain composite of stream s of ring batch k alone on a
+        cleared tile (kept: the ticks compare against it twice)."""
+        key = (k, s, None if uni is None else uni.tobytes())
+        if key not in plain_tiles:
+            plain_tiles[key] = plain_scale([p[s] for p in ring[k]], (W, H),
+                                           (tw, th), uni)
+        return plain_tiles[key]
+
+    # every tick of the ring: the plan tick and the per-cell tick, each
+    # counted, each tile against the plain composite of its stream
+    plan_err = cell_err = 0
+    audio_ok = True
+    plan_counts = cell_counts = None
+    for k in range(WALL_RING):
+        plan_out, got_plan = counted(
+            lambda: wall.step(*ring[k], audio_t, gains_t))
+        cell_out, got_cells = counted(
+            lambda: wall.step(*ring[k], audio_t, gains_t, uniforms=unis))
+        for name, got in (("plan", got_plan), ("per-cell", got_cells)):
+            if got != (tick_launches, 0, 0, 0):
+                fail(f"wall {name} tick of ring batch {k}: {got[0]} K1 "
+                     f"launches (want {tick_launches}), {got[1]} product "
+                     f"calls, {got[2]} plain composites, {got[3]} tile-"
+                     f"assembly calls")
+        plan_counts, cell_counts = got_plan, got_cells
+        for s in range(n):
+            plan_err = max(plan_err, max_err(cells(plan_out, s),
+                                             plain_tile(k, s))[0])
+            # tile 0 at opacity 0.5, the others the identity
+            cell_err = max(cell_err, max_err(cells(cell_out, s), plain_tile(
+                k, s, None if s else unis[0]))[0])
+        audio_ok &= all(np.array_equal(o[3].cpu().numpy(), want_audio)
+                        for o in (plan_out, cell_out))
     # the products, the route before: a comparison only
     dense = matscale.products(ys, us, vs, wall._plan)
-    plan_err = cell_err = dense_err = dense_at1 = 0
+    dense_err = dense_at1 = 0
     for s in range(n):
-        planes = [ys[s], us[s], vs[s]]
-        want = plain_scale(planes, (W, H), (tw, th))
-        plan_err = max(plan_err, max_err(cells(plan_out, s), want)[0])
-        e, at1 = max_err([d[s] for d in dense], want)
+        e, at1 = max_err([d[s] for d in dense], plain_tile(0, s))
         dense_err, dense_at1 = max(dense_err, e), dense_at1 + at1
-        e, _ = max_err(cells(cell_out, s), plain_scale(planes, (W, H),
-                                                       (tw, th), unis[s]))
-        cell_err = max(cell_err, e)
-    audio_ok = all(np.array_equal(o[3].cpu().numpy(), want_audio)
-                   for o in (plan_out, cell_out))
     if plan_err > LSB or cell_err > LSB or dense_err > 1 or not audio_ok:
         fail(f"wall: plan tick err {plan_err}, per-cell tick err {cell_err}, "
              f"products err {dense_err}, audio equal {audio_ok}")
-    # 60 streams on the same 8x8 grid: the blank-fill assembly
+    # 60 streams on the same 8x8 grid: 4 cells blank from the kernel's clear
     n60 = n - 4
     wall60 = MixingWall(n_streams=n60, stream_size=(W, H),
                         canvas_size=WALL_CANVAS, audio_samples=WALL_SAMPLES,
                         device=dev)
-    out60, counts60 = counted(lambda: wall60.step(
-        ys[:n60], us[:n60], vs[:n60], audio_t[:n60], gains_t[:n60]))
-    same = all(torch.equal(a, b) for s in range(n60)
-               for a, b in zip(cells(out60, s), cells(plan_out, s)))
-    blank = all(int(c[0].max()) == 0 and all(bool((p == 128).all())
-                                             for p in c[1:])
-                for s in range(n60, n) for c in [cells(out60, s)])
-    if (wall60.aligned or not (same and blank)
-            or counts60 != (len(frame.launch_plan(n60)), 0, 0)):
-        fail(f"wall of {n60}: aligned {wall60.aligned}, tiles equal {same}, "
-             f"excess cells blank {blank}, (K1 launches, product calls, "
-             f"plain composites) {counts60}")
+    ring60 = [tuple(p[:n60] for p in batch) for batch in ring]
+    next60 = ring_of(ring60)
+
+    def tick60():
+        return wall60.step(*next60(), audio_t[:n60], gains_t[:n60])
+
+    err60, blank = 0, True
+    want60 = np.clip(np.trunc((pcm[:n60].astype(np.float64)
+                               * gains[:n60, None]).sum(0)), -32768, 32767)
+    for k in range(WALL_RING):
+        out60, counts60 = counted(lambda: wall60.step(
+            *ring60[k], audio_t[:n60], gains_t[:n60]))
+        if counts60 != (len(frame.launch_plan(n60)), 0, 0, 0):
+            fail(f"wall of {n60}, ring batch {k}: (K1 launches, product "
+                 f"calls, plain composites, tile-assembly calls) {counts60}")
+        for s in range(n60):
+            err60 = max(err60, max_err(cells(out60, s), plain_tile(k, s))[0])
+        blank &= all(int(c[0].max()) == 0 and all(bool((p == 128).all())
+                                                  for p in c[1:])
+                     for s in range(n60, n) for c in [cells(out60, s)])
+        audio_ok &= np.array_equal(out60[3].cpu().numpy(), want60)
+    if wall60.aligned or err60 > LSB or not blank or not audio_ok:
+        fail(f"wall of {n60}: aligned {wall60.aligned}, tiles err {err60}, "
+             f"excess cells blank {blank}, audio equal {audio_ok}")
     plan_ms = timed_ms(tick_plan, reps=10, batch=3)
     plan_dev, plan_acts = device_total_ms(tick_plan, n=10)
     cell_ms = timed_ms(tick_cells, reps=10, batch=3)
     cell_dev, cell_acts = device_total_ms(tick_cells, n=10)
+    ms60 = timed_ms(tick60, reps=10, batch=3)
+    dev60, acts60 = device_total_ms(tick60, n=10)
     tick_host = host_us(tick_plan, n=20)
+    cell_host = host_us(tick_cells, n=20)
+    host60 = host_us(tick60, n=20)
 
     def tick_products():
         # the plan tick before the cell launch: the products, then the
@@ -791,66 +886,78 @@ def batch_phases(dev, smi, rng):
     wall_taps = wall_bytes - n * y420p_bytes(W, H) + n * cell_taps
     tick_bound, _ = bound(wall_taps, 0, 1.0)
 
-    # the cell launch alone, on the plan tick's sources (identity cells),
+    # the canvas launch alone, on the plan tick's sources (identity cells),
     # beside its plain version and the library yardstick
     stack_unis = np.broadcast_to(wall._identity, (n, 29))
+    next_stack = ring_of(ring)
 
-    def stack_call():
-        return frame.composite_cells_cuda((tw, th), [ys, us, vs], y420p,
-                                          stack_unis)
+    def stack_call(batch=None):
+        return frame.composite_cells_cuda(
+            (tw, th), list(batch or next_stack()), y420p, stack_unis,
+            grid=wall.grid_wh)
 
     wall_grids = sample_grids(wall._plan, (H, W), dev, n)
 
     def stack_library():
         return grid_sample_y420p([ys, us, vs], wall_grids)
 
-    stack, lib = stack_call(), stack_library()
+    stack, lib = stack_call(ring[0]), stack_library()
     stack_err = lib_err = lib_at1 = 0
     for s in range(n):
-        want = plain_scale([ys[s], us[s], vs[s]], (W, H), (tw, th))
-        stack_err = max(stack_err, max_err(
-            [t[s * r:(s + 1) * r] for t, r in zip(stack, (th, th // 2,
-                                                          th // 2))],
-            want)[0])
-        e, at1 = max_err([t[s] for t in lib], want)
+        stack_err = max(stack_err, max_err(cells(stack, s),
+                                           plain_tile(0, s))[0])
+        e, at1 = max_err([t[s] for t in lib], plain_tile(0, s))
         lib_err, lib_at1 = max(lib_err, e), lib_at1 + at1
     if stack_err > LSB or lib_err > 1:
-        fail(f"the wall's {n} identity cells: the cell launch alone err "
+        fail(f"the wall's {n} identity cells: the canvas launch alone err "
              f"{stack_err}, grid_sample err {lib_err} vs plain")
     stack_ms = timed_ms(stack_call)
     stack_dev, stack_acts = device_total_ms(stack_call)
-    # the tick's host work: the cell wrapper, and its numpy table alone
+    # the tick's host work: the cell wrapper, and its table (the kept
+    # layout with this call's pointers written in; a fresh numpy build
+    # beside it, the table each tick built before the layout was kept)
     stack_host = host_us(stack_call, n=20)
-    table_host = host_us(lambda: frame.cell_descriptors(
-        (tw, th), [ys, us, vs], y420p, stack_unis), n=20)
+    table_host = host_us(lambda: frame.cell_params(
+        (tw, th), wall.grid_wh, [ys, us, vs], y420p, stack_unis, stack), n=20)
+    fresh_host = host_us(lambda: frame.cell_descriptors(
+        (tw, th), [ys, us, vs], y420p, stack_unis, wall.grid_wh[0]), n=20)
     stack_lib_ms = timed_ms(stack_library, reps=10, batch=3)
     stack_lib_dev, stack_lib_acts = device_total_ms(stack_library, n=10)
     stack_srcs = [([ys[i], us[i], vs[i]], y420p, wall._identity)
                   for i in range(n)]
     stack_plain_ms = timed_ms(lambda: composite.composite_cells_torch(
-        (tw, th), stack_srcs, dev), reps=3, batch=1, warmup=1)
-    stack_bms, stack_by = bound(n * (cell_taps + y420p_bytes(tw, th)), 0, 1.0)
+        (tw, th), stack_srcs, dev, grid=wall.grid_wh), reps=3, batch=1,
+        warmup=1)
+    stack_bms, stack_by = bound(n * cell_taps + y420p_bytes(*WALL_CANVAS), 0,
+                                1.0)
     print(f"[15 wall, config 5: {n} streams {W}x{H} -> {WALL_CANVAS[0]}x"
           f"{WALL_CANVAS[1]}, {tw}x{th} tiles, {WALL_SAMPLES} stereo samples "
-          f"a stream; tol {LSB} LSB vs the per-cell plain fold] plan tick: "
+          f"a stream, a ring of {WALL_RING} input batches; tol {LSB} LSB vs "
+          f"the per-cell plain fold] plan tick: "
           f"{plan_counts[0]} K1 launches, {plan_counts[1]} product calls, "
-          f"{plan_counts[2]} plain composites, every tile err {plan_err}; "
+          f"{plan_counts[2]} plain composites, {plan_counts[3]} tile-assembly "
+          f"calls, every tile err {plan_err}; "
           f"per-cell tick (tile 0 at opacity 0.5): {cell_counts[0]} K1 "
           f"launches, {cell_counts[1]} product calls, {cell_counts[2]} plain "
-          f"composites, every tile err {cell_err}; the products (comparison "
+          f"composites, {cell_counts[3]} tile-assembly calls, every tile err "
+          f"{cell_err}; the products (comparison "
           f"only) err {dense_err} ({dense_at1} px at 1 LSB); audio equal to "
-          f"the host sum; {n60} streams: {counts60[0]} K1 launches, not "
-          f"aligned, tiles equal, 4 excess cells blank | the function: "
+          f"the host sum; {n60} streams: {counts60[0]} K1 launches, "
+          f"{counts60[3]} tile-assembly calls, tiles err {err60}, 4 excess "
+          f"cells blank | the function: "
           f"{wall_taps / 1e6:.3f} MB of tap sectors, canvas and audio, byte "
           f"bound {tick_bound:.6f} ms | plan tick: call {plan_ms:.4f} ms, "
           f"device {plan_dev:.4f} ms ({plan_acts:.0f} device activities), "
           f"host {tick_host:.1f} us (of it the cell wrapper {stack_host:.1f} "
-          f"us, its table {table_host:.1f} us), share "
-          f"{tick_bound / plan_dev:.1%} | "
+          f"us, its table {table_host:.1f} us; a fresh table {fresh_host:.1f} "
+          f"us), share {tick_bound / plan_dev:.1%} | "
           f"per-cell tick: call {cell_ms:.4f} ms, device {cell_dev:.4f} ms "
-          f"({cell_acts:.0f} device activities), share "
-          f"{tick_bound / cell_dev:.1%} | the cell launch alone ({n} identity "
-          f"cells, {stack_acts:.0f} launches): call {stack_ms:.4f} ms, device "
+          f"({cell_acts:.0f} device activities), host {cell_host:.1f} us, "
+          f"share {tick_bound / cell_dev:.1%} | {n60}-stream tick: call "
+          f"{ms60:.4f} ms, device {dev60:.4f} ms ({acts60:.0f} device "
+          f"activities), host {host60:.1f} us | the canvas launch alone ({n} "
+          f"identity cells, {stack_acts:.0f} launches): call {stack_ms:.4f} "
+          f"ms, device "
           f"{stack_dev:.4f} ms, bound {stack_bms:.6f} ms ({stack_by}), share "
           f"{stack_bms / stack_dev:.1%}, plain {stack_plain_ms:.4f} ms, "
           f"grid_sample [{n}, 1, {H}, {W}] (library yardstick, err {lib_err}, "
@@ -861,13 +968,15 @@ def batch_phases(dev, smi, rng):
           f"activities), {wall_flops / 1e9:.3f} GFLOP, dense bound "
           f"{wall_bound:.4f} ms ({wall_by}), share "
           f"{wall_bound / prod_dev:.1%} | {smi}", flush=True)
-    tick_row = {"name": f"frame_composite (K1: wall tick's cell launch alone, "
-                        f"{n} identity cells {W}x{H} -> {tw}x{th}, "
-                        f"{tick_launches} launches; launches: the plan tick's)",
+    tick_row = {"name": f"frame_composite (K1: wall tick's canvas launch "
+                        f"alone, {n} identity cells {W}x{H} -> {tw}x{th} "
+                        f"straight onto the {WALL_CANVAS[0]}x"
+                        f"{WALL_CANVAS[1]} canvas, {tick_launches} launches; "
+                        f"launches: the plan tick's)",
                 "route": "cuda",
                 "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
                 "replaces": REPLACES["K1"], "launches": plan_counts[0],
-                "max_abs_err": max(plan_err, cell_err, stack_err),
+                "max_abs_err": max(plan_err, cell_err, stack_err, err60),
                 "ms": stack_ms,
                 "device_ms": stack_dev, "plain_ms": stack_plain_ms,
                 "bound_ms": stack_bms, "bound_by": stack_by,
@@ -1737,7 +1846,8 @@ def free_port() -> int:
 def wall_ingest_phase(dev, smi):
     """Phase 21: 64 RTMP publishers into the port's server; each session's
     latest sample seeds a 1920x1080 stream made on the card; one per-cell
-    wall tick and one plan tick, each one cell launch per 32 streams.
+    wall tick and one plan tick, each one cell launch per 32 streams
+    straight onto the canvas, no tile assembled.
     Returns the kernels-line row of K1 on one RTMP-fed cell."""
     import asyncio
     from swiftvideo_tpu_torch.core import EventBox, StepClock, TimePoint, Tx
@@ -1833,17 +1943,20 @@ def wall_ingest_phase(dev, smi):
     for kern in frame.kernel_launches:
         frame.kernel_launches[kern] = 0
     frame.launches = composite.calls = matscale.calls = 0
-    cell_out = tick_cells()
-    torch.cuda.synchronize()
-    k1, cell_plain = frame.kernel_launches[frame.YUV_KERNEL], composite.calls
-    plan_out = tick_plan()
-    torch.cuda.synchronize()
+    with counting_assembly() as assembly:
+        cell_out = tick_cells()
+        torch.cuda.synchronize()
+        k1, cell_plain = (frame.kernel_launches[frame.YUV_KERNEL],
+                          composite.calls)
+        plan_out = tick_plan()
+        torch.cuda.synchronize()
     if (k1 != tick_launches or frame.launches != 2 * tick_launches
-            or cell_plain or composite.calls or matscale.calls):
+            or cell_plain or composite.calls or matscale.calls or assembly):
         fail(f"RTMP-fed wall: {k1} K1 launches in the per-cell tick (want "
              f"{tick_launches}), {frame.launches} after the plan tick (want "
              f"{2 * tick_launches}), {composite.calls} plain composites, "
-             f"{matscale.calls} product calls")
+             f"{matscale.calls} product calls, tile-assembly calls "
+             f"{dict(assembly)}")
     plan_k1 = frame.launches - k1
     gw = wall.grid_wh[0]
 
@@ -1905,7 +2018,8 @@ def wall_ingest_phase(dev, smi):
           f"{chunks.native_available()}): sessions and their 3 samples each "
           f"accepted in {accept_s:.3f} s; {n} streams {W}x{H} made on the card "
           f"from the sessions' seeds; per-cell tick: {k1} K1 launches (cell "
-          f"grid), no product or plain call, every tile err {cell_err} vs the "
+          f"grid, straight onto the canvas), no product, plain or tile-"
+          f"assembly call, every tile err {cell_err} vs the "
           f"plain composite of its session's stream; plan tick "
           f"{plan_k1} K1 launches, within {plan_vs_cell} LSB of "
           f"it; audio fold "

@@ -52,17 +52,22 @@
 //   would have to be encoded on the host for every plane of every call, which is the
 //   host cost this form removes.
 // * Cell grid (FrameParams cell_h, cell_w; y420p targets only).  The target is a
-//   column of cells of cell_h x cell_w pixels (chroma cell_h / 2 x cell_w / 2; the
-//   target is cell_w wide, ops/frame.py pack_params checks it), and a
-//   pixel's grid position is taken inside its own cell: ndc(x mod cell_w, cell_w),
-//   ndc(y mod cell_h, cell_h).  Each source's maps are then evaluated operation for
-//   operation as in a launch onto a cell-sized target, so a stack of cells (the
-//   mixing wall's tiles, a batch of scaled frames) is one launch per kCapacity
-//   cells with the pixels of one launch per cell.  A source's boxes are its
-//   cell-local boxes shifted to its cell and clipped to it (ops/frame.py
-//   cell_descriptors): every pixel of a neighbouring cell has the same local
-//   position, and only the box tests (the tile's and each pixel's) keep a source
-//   inside its own cell.  cell_h = cell_w = 0: no cell grid.
+//   grid of rows and columns of cells of cell_h x cell_w pixels (chroma cell_h / 2 x
+//   cell_w / 2; its height and width are multiples of the cell's, ops/frame.py
+//   pack_params checks it), and a pixel's grid position is taken inside its own
+//   cell: ndc(x mod cell_w, cell_w), ndc(y mod cell_h, cell_h).  Each source's maps
+//   are then evaluated operation for operation as in a launch onto a cell-sized
+//   target, so a canvas of cells (the mixing wall, written in place) or a stack of
+//   them (a batch of scaled frames) is one launch per kCapacity cells with the
+//   pixels of one launch per cell.  A source's boxes are its cell-local boxes
+//   shifted to its cell's row and column and clipped to it (ops/frame.py
+//   cell_boxes): every pixel of a neighbouring cell, beside it or above it, has the
+//   same local position, and only the box tests (the tile's and each pixel's: the
+//   row's, and the column's of each pixel of a run) keep a source inside its own
+//   cell.  No cell offset goes into the uniforms: it would move a tap.  A launch
+//   writes a band of whole cell rows; one whose band shares a cell row with the
+//   launch before it runs chained (ops/frame.py cell_launch_plan).  cell_h =
+//   cell_w = 0: no cell grid.
 //
 // Numerics follow golden operation for operation, and this file is compiled with
 // --fmad=false so no multiply-add pair is contracted into an FMA: the mask tests at
@@ -912,8 +917,8 @@ int resident_blocks(Kernel kernel, int which) {
 // chroma planes [ch, cw] (y420p, y422p or y444p); 1 / 2: out[0] = Y, out[1] =
 // interleaved nv12 / nv21 chroma [ch, cw, 2]; 3 / 4: out[0] = interleaved [h, w, 4]
 // RGBA / BGRA (ch, cw unused).  cell_h, cell_w > 0 (out_fmt 0 as y420p only, even
-// sizes, h a multiple of cell_h, w = cell_w): the target is a column of cells, as the
-// file's note says.  Launches on `stream` of card `device` as many
+// sizes, h a multiple of cell_h, w a multiple of cell_w): the target is a grid of
+// cells, as the file's note says.  Launches on `stream` of card `device` as many
 // blocks as the card holds at once (at most one per tile) and returns
 // cudaGetLastError(); the calling thread's current device is left as it was.
 extern "C" int sv_frame_composite(const void* params, int device, void* stream) {

@@ -27,7 +27,7 @@ The quantize uses ``torch.round``, which rounds half to even like
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -321,11 +321,22 @@ def composite_stack_torch(out_fmt: PixelFormat, size: Tuple[int, int],
 
 
 def composite_cells_torch(cell_size: Tuple[int, int], sources,
-                          device: torch.device) -> List[torch.Tensor]:
+                          device: torch.device,
+                          grid: Optional[Tuple[int, int]] = None
+                          ) -> List[torch.Tensor]:
     """The plain version of the frame kernel's cell launch
     (ops/frame.py composite_cells_cuda): each source alone onto its own
-    cleared y420p cell of ``cell_size`` = (w, h), the cells stacked top to
+    cleared y420p cell of ``cell_size`` = (w, h), source i placed on cell i
+    of a canvas of ``grid`` = (columns, rows) cells in row-major order,
+    every other cell cleared; without ``grid`` the cells are stacked top to
     bottom into [n * h, w] luma and two [n * h / 2, w / 2] chroma planes."""
-    cells = [composite_stack_torch(PixelFormat.y420p, cell_size, [src], device)
-             for src in sources]
-    return [torch.cat(planes) for planes in zip(*cells)]
+    w, h = int(cell_size[0]), int(cell_size[1])
+    cols, rows = (1, len(sources)) if grid is None else grid
+    canvas = clear_planes(PixelFormat.y420p, (cols * w, rows * h), device)
+    for i, src in enumerate(sources):
+        r, c = divmod(i, cols)
+        cell = composite_stack_torch(PixelFormat.y420p, (w, h), [src], device)
+        for t, p in zip(canvas, cell):
+            ph, pw = p.shape
+            t[r * ph:(r + 1) * ph, c * pw:(c + 1) * pw] = p
+    return canvas

@@ -22,10 +22,13 @@ consecutive launches onto the same target, each after the first in chained
 mode (``launch_plan``).
 
 ``composite_cells_cuda`` composites each frame of a batch alone onto its
-own cell of a tile stack (the mixing wall's tiles, a batch of scaled
-frames): the header's cell grid makes the kernel place every pixel inside
-its cell, so a launch of up to ``CAPACITY`` cells gives the pixels of one
-launch per cell, and the batch's table is built with numpy, not per frame.
+own cell of a grid of cell rows and columns (the mixing wall's canvas, or
+a one-column stack of scaled frames): the header's cell grid makes the
+kernel place every pixel inside its cell, so a launch of up to
+``CAPACITY`` cells gives the pixels of one launch per cell.  A layout's
+launches (boxes, dims, format, uniforms, bands of cell rows) are built
+once and kept by value (``cell_layout``); a call writes only the plane
+and target pointers into copies of them (``cell_params``).
 
 The kernels are built on first use with ``nvcc`` into ``build/`` inside
 this package (ops/nvcc.py: a plain C interface, loaded with ctypes) and
@@ -207,15 +210,20 @@ def border_boxes(u: np.ndarray, size: Tuple[int, int],
                     np.int32).reshape(-1, 2, 4)
 
 
-def cell_boxes(u: np.ndarray, cell_size: Tuple[int, int]) -> np.ndarray:
-    """[n, 2, 4] boxes of packed uniform row i of ``u`` on a column of
-    y420p cells of ``cell_size`` = (w, h): its boxes on a cell-sized target
-    (``border_boxes``, clipped to the cell), shifted down to cell i on the
-    luma and the chroma grid."""
-    boxes = border_boxes(u, cell_size, PixelFormat.y420p)
-    rows = np.arange(len(boxes), dtype=np.int32)[:, None] * int(cell_size[1])
-    boxes[:, 0, :2] += rows
-    boxes[:, 1, :2] += rows // 2
+def cell_boxes(u: np.ndarray, cell_size: Tuple[int, int],
+               cols: int = 1) -> np.ndarray:
+    """[n, 2, 4] boxes of packed uniform row i of ``u`` on a grid of
+    ``cols`` columns of y420p cells of ``cell_size`` = (w, h), cell i at
+    row i // cols and column i % cols: its boxes on a cell-sized target
+    (``border_boxes``, clipped to the cell), shifted to its cell, by (r h,
+    c w) on the luma grid and (r h / 2, c w / 2) on the chroma grid."""
+    w, h = int(cell_size[0]), int(cell_size[1])
+    boxes = border_boxes(u, (w, h), PixelFormat.y420p)
+    rows, cols_at = np.divmod(np.arange(len(boxes), dtype=np.int32),
+                              np.int32(cols))
+    for grid, (gh, gw) in enumerate(((h, w), (h // 2, w // 2))):
+        boxes[:, grid, :2] += (rows * gh)[:, None]
+        boxes[:, grid, 2:] += (cols_at * gw)[:, None]
     return boxes
 
 
@@ -243,25 +251,42 @@ def descriptors(size: Tuple[int, int], sources,
     return np.frombuffer(bytearray(b"".join(rows)), _DESC)
 
 
+def _batch_dims(planes) -> Tuple[int, int, int, int]:
+    """A batch's frame dims: luma (h, w), then chroma (h, w)."""
+    chroma = planes[1] if len(planes) > 1 else planes[0]
+    return tuple(planes[0].shape[1:3]) + tuple(chroma.shape[1:3])
+
+
+def _cell_rows(cell_size: Tuple[int, int], cols: int, fmt: PixelFormat,
+               dims: Tuple[int, ...], u: np.ndarray) -> np.ndarray:
+    """The _DESC rows of a batch of cells with no plane pointers: format,
+    dims, boxes on a ``cols``-wide grid (``cell_boxes``) and uniforms."""
+    table = np.zeros(len(u), _DESC)
+    table["fmt"] = _SRC_CODES[fmt]
+    table["dims"] = dims
+    table["box"] = cell_boxes(u, cell_size, cols)
+    table["u"] = u
+    return table
+
+
+def _write_planes(rows: np.ndarray, planes, frames: np.ndarray) -> None:
+    """Point ``rows`` at frames ``frames`` (uint64 indices) of the batch:
+    each plane's pointer plus the frame index times its frame stride, so
+    no frame is sliced on the host."""
+    for k, p in enumerate(planes):
+        rows["plane"][:, k] = (np.uint64(p.data_ptr())
+                               + frames * np.uint64(p.stride(0)))
+
+
 def cell_descriptors(cell_size: Tuple[int, int], planes, fmt: PixelFormat,
-                     uniforms: np.ndarray) -> np.ndarray:
+                     uniforms: np.ndarray, cols: int = 1) -> np.ndarray:
     """The table of a batch of cells: frame i of ``planes`` (the planes of
     ``fmt``, each with a leading axis of n contiguous frames), with
-    packed uniform row i of ``uniforms``, on cell i of a column of
-    ``cell_size`` y420p cells (``cell_boxes``).  Plane pointers step by
-    each plane's frame stride, so no frame is sliced on the host."""
+    packed uniform row i of ``uniforms``, on cell i of a ``cols``-wide
+    grid of ``cell_size`` y420p cells (``cell_boxes``)."""
     u = np.asarray(uniforms, np.float32).reshape(-1, 29)
-    n = len(u)
-    table = np.zeros(n, _DESC)
-    step = np.arange(n, dtype=np.uint64)
-    for k, p in enumerate(planes):
-        table["plane"][:, k] = (np.uint64(p.data_ptr())
-                                + step * np.uint64(p.stride(0)))
-    table["fmt"] = _SRC_CODES[fmt]
-    chroma = planes[1] if len(planes) > 1 else planes[0]
-    table["dims"] = tuple(planes[0].shape[1:3]) + tuple(chroma.shape[1:3])
-    table["box"] = cell_boxes(u, cell_size)
-    table["u"] = u
+    table = _cell_rows(cell_size, cols, fmt, _batch_dims(planes), u)
+    _write_planes(table, planes, np.arange(len(u), dtype=np.uint64))
     return table
 
 
@@ -272,13 +297,41 @@ def launch_plan(n: int) -> List[Tuple[int, int]]:
     return [(a, min(a + CAPACITY, n)) for a in range(0, max(n, 1), CAPACITY)]
 
 
+# a FrameParams as 64-bit words: the target pointers are words 0-2, and
+# source j's plane pointers words _SRC_WORD + j * _DESC_WORDS onwards
+assert _PARAMS.itemsize % 8 == 0 and _DESC.itemsize % 8 == 0
+_PARAMS_WORDS = _PARAMS.itemsize // 8
+_SRC_WORD, _DESC_WORDS = _HEADER.itemsize // 8, _DESC.itemsize // 8
+
+
+def cell_launch_plan(n: int, cols: int,
+                     rows: int) -> List[Tuple[int, int, int, int, bool]]:
+    """The launches of n cells in row-major order on a grid of ``cols`` x
+    ``rows`` cells: (a, b, r0, r1, chained), cells [a, b) of at most
+    CAPACITY onto the band of cell rows [r0, r1).  A launch runs chained
+    when its first cell row holds cells of the launch before it.  A launch
+    that starts a chain also writes every row its chained successors reach,
+    and the last launch every row below the last cell, so no launch reads
+    a row that no launch has written and no cell is left unwritten (a cell
+    no source covers comes out as the clear)."""
+    plan = []
+    for a, b in launch_plan(n):
+        chained = a % cols != 0
+        if not chained:
+            head = len(plan)
+        plan.append([a, b, a // cols, -(-b // cols), chained])
+        plan[head][3] = max(plan[head][3], plan[-1][3])
+    plan[-1][3] = plan[head][3] = rows
+    return [tuple(p) for p in plan]
+
+
 def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
                 rows: np.ndarray, chained: bool,
                 cell: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """One launch's FrameParams: the target's planes, shape and chroma
-    grid, its cell grid (``cell`` = (w, h) of a y420p target's cells, one
-    column of them, or None), and ``rows`` (at most CAPACITY _DESC rows) as
-    its sources."""
+    grid, its cell grid (``cell`` = (w, h) of a y420p target's cells, in
+    rows and columns that tile the target, or None), and ``rows`` (at most
+    CAPACITY _DESC rows) as its sources."""
     if len(rows) > CAPACITY:
         raise ValueError(f"{len(rows)} sources in one launch, at most "
                          f"{CAPACITY}")
@@ -287,9 +340,9 @@ def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
         if out_fmt != PixelFormat.y420p:
             raise ValueError(f"a cell grid needs a y420p target, not {out_fmt}")
         if (cell_w <= 0 or cell_h <= 0 or cell_w % 2 or cell_h % 2
-                or int(size[0]) != cell_w or int(size[1]) % cell_h):
+                or int(size[0]) % cell_w or int(size[1]) % cell_h):
             raise ValueError(f"cells of {cell} do not tile a y420p {size} "
-                             f"target as one column of even-sized cells")
+                             f"target as a grid of even-sized cells")
     params = np.zeros((), _PARAMS)
     head = params["head"]
     head["out"][:len(outs)] = [t.data_ptr() for t in outs]
@@ -302,6 +355,68 @@ def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
         head["cell_h"], head["cell_w"] = cell_h, cell_w
     params["src"][:len(rows)] = rows
     return params
+
+
+@lru_cache(maxsize=64)
+def cell_layout(cell_size: Tuple[int, int], grid: Tuple[int, int],
+                fmt: PixelFormat, dims: Tuple[int, int, int, int],
+                u: bytes) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray]:
+    """The launches of a layout of cells, kept by value: (the FrameParams
+    of each launch of ``cell_launch_plan`` as a read-only row of 64-bit
+    words with no plane or target pointer, each launch's band offsets into
+    the canvas planes, the flat indices of the words that take the
+    sources' plane pointers, and each source's frame, in that order).
+    ``grid`` = (columns, rows), ``dims`` the frames' (``_batch_dims``),
+    ``u`` the packed uniforms' float32 bytes.  Each source's boxes are its
+    boxes on the grid moved up to its launch's band.  Nothing here depends
+    on where the planes lie: a live wall's frames are new allocations
+    every tick."""
+    w, h = int(cell_size[0]), int(cell_size[1])
+    cols, rows = grid
+    uniforms = np.frombuffer(u, np.float32).reshape(-1, 29)
+    table = _cell_rows((w, h), cols, fmt, dims, uniforms)
+    # a contiguous canvas plane's bytes per cell row
+    row_bytes = np.array([h * cols * w, (h // 2) * (cols * w // 2),
+                          (h // 2) * (cols * w // 2)], np.uint64)
+    words, tops, at = [], [], []
+    for a, b, r0, r1, chained in cell_launch_plan(len(table), cols, rows):
+        band = table[a:b].copy()
+        band["box"][:, 0, :2] -= r0 * h
+        band["box"][:, 1, :2] -= r0 * (h // 2)
+        params = pack_params((cols * w, (r1 - r0) * h), PixelFormat.y420p,
+                             (), band, chained, cell=(w, h))
+        at.append(len(words) * _PARAMS_WORDS + _SRC_WORD
+                  + _DESC_WORDS * np.arange(b - a)[:, None]
+                  + np.arange(num_planes(fmt)))
+        words.append(np.frombuffer(params.tobytes(), np.uint64))
+        tops.append(np.uint64(r0) * row_bytes)
+    kept = (np.stack(words), np.stack(tops),
+            np.concatenate([i.ravel() for i in at]),
+            np.arange(len(table), dtype=np.uint64)[:, None])
+    for array in kept:
+        array.flags.writeable = False
+    return kept
+
+
+def cell_params(cell_size: Tuple[int, int], grid: Tuple[int, int], planes,
+                fmt: PixelFormat, uniforms: np.ndarray,
+                outs) -> List[np.ndarray]:
+    """The FrameParams, as 64-bit words, of each launch that puts frame i
+    of ``planes`` on cell i of the ``grid`` = (columns, rows) canvas
+    ``outs`` (its three contiguous y420p planes): a copy of
+    ``cell_layout``'s words with each launch's band of the canvas and each
+    frame's planes (its plane pointers plus the frame times their frame
+    strides) written in."""
+    u = np.ascontiguousarray(uniforms, np.float32).reshape(-1, 29)
+    words, tops, at, frames = cell_layout(
+        tuple(cell_size), tuple(grid), fmt, _batch_dims(planes), u.tobytes())
+    params = words.copy()
+    params[:, :3] = np.array([o.data_ptr() for o in outs], np.uint64) + tops
+    bases = np.array([p.data_ptr() for p in planes], np.uint64)
+    steps = np.array([p.stride(0) for p in planes], np.uint64)
+    params.reshape(-1)[at] = (bases + frames * steps).ravel()
+    return list(params)
 
 
 def _launch(lib, params: np.ndarray, index: int, stream: int,
@@ -369,19 +484,24 @@ def _check_batch(planes, fmt: PixelFormat) -> Tuple[torch.device, int]:
 
 def composite_cells_cuda(cell_size: Tuple[int, int], planes,
                          fmt: PixelFormat, uniforms,
-                         out_fmt: PixelFormat = PixelFormat.y420p
+                         out_fmt: PixelFormat = PixelFormat.y420p, *,
+                         grid: Optional[Tuple[int, int]] = None
                          ) -> List[torch.Tensor]:
     """Composite frame i of a batch — ``planes``, the planes of ``fmt``
     each with a leading axis of n frames (u8, each frame contiguous), and
-    ``uniforms``, [n, 29] packed — alone onto cell i of a tile stack: a
-    y420p target of n * h rows and w columns for ``cell_size`` = (w, h),
-    even, whose cell i
-    (rows i * h to (i + 1) * h, chroma rows from i * h / 2) is bit for bit
-    what ``composite_frame_cuda`` makes of that frame alone on a cleared
-    cell.  Returns the stack's three u8 planes on the frames' device.  On
-    the card: one launch a ``CAPACITY`` cells, each onto its own row slice
-    of the stack (unchained: the cells are disjoint); CPU tensors take the
-    plain per-cell fold (``composite_cells_torch``).  Only y420p stacks are
+    ``uniforms``, [n, 29] packed — alone onto cell i of a y420p canvas of
+    ``grid`` = (columns, rows) cells of ``cell_size`` = (w, h), even, in
+    row-major order: cell i at row r = i // columns and column c = i %
+    columns holds (luma rows r h to (r + 1) h, columns c w to (c + 1) w)
+    bit for bit what ``composite_frame_cuda`` makes of that frame alone on
+    a cleared cell, and every cell past the last frame is the clear (luma
+    0, chroma 128).  Without ``grid`` the canvas is one column of n cells.
+    Returns the canvas's three u8 planes, [rows h, columns w] and two
+    [rows h / 2, columns w / 2], on the frames' device.  On the card: one
+    launch a ``CAPACITY`` cells onto its band of cell rows, chained where a
+    band shares a row with the launch before (``cell_launch_plan``), from
+    a table kept per layout (``cell_params``); CPU tensors take the plain
+    per-cell fold (``composite_cells_torch``).  Only y420p canvases are
     written: another ``out_fmt`` raises."""
     if out_fmt != PixelFormat.y420p:
         raise ValueError(f"a cell grid needs a y420p target, not {out_fmt}")
@@ -393,26 +513,23 @@ def composite_cells_cuda(cell_size: Tuple[int, int], planes,
     uniforms = np.asarray(uniforms, np.float32).reshape(-1, 29)
     if len(uniforms) != n:
         raise ValueError(f"{len(uniforms)} uniform rows for {n} frames")
+    cols, rows = (1, n) if grid is None else (int(grid[0]), int(grid[1]))
+    if cols <= 0 or rows <= 0 or cols * rows < n:
+        raise ValueError(f"a grid of {cols}x{rows} cells holds fewer than "
+                         f"{n} frames")
     if dev.type == "cpu":
         frames = zip(*(p.unbind(0) for p in planes))
         return composite_cells_torch(
-            (w, h), [(list(f), fmt, u) for f, u in zip(frames, uniforms)], dev)
+            (w, h), [(list(f), fmt, u) for f, u in zip(frames, uniforms)], dev,
+            grid=(cols, rows))
     if dev.type != "cuda":
         raise ValueError(f"frame kernel runs on cuda, not {dev}")
-    cell_rows = (h, h // 2, h // 2)
-    outs = [torch.empty((n * r, c), dtype=torch.uint8, device=dev)
-            for r, c in zip(cell_rows, (w, w // 2, w // 2))]
-    table = cell_descriptors((w, h), planes, fmt, uniforms)
+    outs = [torch.empty((rows * r, cols * c), dtype=torch.uint8, device=dev)
+            for r, c in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
     lib = build()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for a, b in launch_plan(n):
-        # launch a..b writes its own row slice: boxes move up a cells
-        rows = table[a:b].copy()
-        rows["box"][:, 0, :2] -= a * h
-        rows["box"][:, 1, :2] -= a * (h // 2)
-        part = [o[a * r:b * r] for o, r in zip(outs, cell_rows)]
-        params = pack_params((w, (b - a) * h), PixelFormat.y420p, part, rows,
-                             False, cell=(w, h))
+    for params in cell_params((w, h), (cols, rows), planes, fmt, uniforms,
+                              outs):
         _launch(lib, params, index, stream, YUV_KERNEL)
     return outs

@@ -16,11 +16,15 @@ over the ranks as the JAX package splits it over a device mesh:
 Two video paths, as in the JAX package: default uniforms (every cell a
 pure full-coverage scale) and per-cell uniforms (aspect fit, offset,
 opacity, fill).  On the card both are the frame kernel's cell launch
-(``ops/frame.composite_cells_cuda``): each stream onto its own cell of a
-tile stack, one launch per 32 streams, default cells with the identity
-uniforms.  On the CPU default cells take the two products of
-``ops/matscale.scale_y420p_batch`` (the JAX package's route) and per-cell
-uniforms the cell launch's plain version, one plain composite per cell.
+(``ops/frame.composite_cells_cuda``), default cells with the identity
+uniforms: on one card every stream goes straight onto its cell of the
+wall canvas, and on an aligned rank layout onto the rank's band of rows,
+one launch per 32 streams, with no assembly copy (a cell no stream fills
+comes out blank from the kernel's clear); only the gathered layout
+composites a tile stack and assembles it.  On the CPU default cells take
+the two products of ``ops/matscale.scale_y420p_batch`` (the JAX package's
+route) and per-cell uniforms the cell launch's plain version, one plain
+composite per cell, and every layout assembles its tiles.
 
 Without a group the wall runs on one device, the card unless the caller
 asks for the CPU; the aligned layout then holds exactly when the streams
@@ -30,6 +34,7 @@ fill the grid.
 from __future__ import annotations
 
 import math
+from functools import cached_property
 from typing import Optional, Tuple
 
 import numpy as np
@@ -106,6 +111,20 @@ class MixingWall:
         sw, sh = stream_size
         self._identity = packed(identity_uniforms(stream_size, self.tile))
         self._plan = plan_scale(self._identity, self.tile, (sh, sw))
+        # the default cells' uniforms, built once (the frame kernel takes
+        # uniforms by value, so the launch table stays the same each tick)
+        self._unis = np.broadcast_to(
+            self._identity, (self.local, self._identity.shape[0])).copy()
+        self._unis.flags.writeable = False
+        # on the card, the (columns, rows) of cells this rank writes straight
+        # onto its output: the whole wall on one card, its band of rows on
+        # an aligned rank layout; None where tiles are assembled
+        self._canvas = None
+        if self.device.type != "cpu":
+            if group is None:
+                self._canvas = (gw, gh)
+            elif self.aligned:
+                self._canvas = (gw, self.local // gw)
 
     # --- placement ----------------------------------------------------------
     def shard(self, array) -> torch.Tensor:
@@ -122,25 +141,34 @@ class MixingWall:
     def default_uniforms(self) -> np.ndarray:
         """Identity full-cell uniforms for this rank's streams, a host
         [local, 29] float32 array (the frame kernel takes uniforms by
-        value)."""
-        return np.broadcast_to(self._identity,
-                               (self.local, self._identity.shape[0])).copy()
+        value); a copy of the one the wall keeps."""
+        return self._unis.copy()
 
-    def default_gains(self) -> torch.Tensor:
+    @cached_property
+    def _gains(self) -> torch.Tensor:
         """Unity gains for real streams, zero for padded blanks; this
-        rank's slice."""
+        rank's slice on ``device``, built on first use and kept."""
         return self.shard((np.arange(self.n_pad)
                            < self.n_streams).astype(np.float32))
 
+    def default_gains(self) -> torch.Tensor:
+        """Unity gains for real streams, zero for padded blanks; this
+        rank's slice (a copy of the one the wall keeps)."""
+        return self._gains.clone()
+
     # --- one tick -----------------------------------------------------------
+    @staticmethod
+    def _host_uniforms(uniforms) -> np.ndarray:
+        if isinstance(uniforms, torch.Tensor):
+            uniforms = uniforms.cpu().numpy()
+        return np.asarray(uniforms, np.float32)
+
     def _scale_cells(self, ys, us, vs, uniforms):
         """Each of this rank's real streams onto its own blank tile with its
         own uniforms: the frame kernel's cell launch on the card (one launch
         per 32 streams), the plain per-cell fold for CPU tensors.  Padded
         streams keep zero tiles, which ``_blank_fix`` blanks."""
-        if isinstance(uniforms, torch.Tensor):
-            uniforms = uniforms.cpu().numpy()
-        uniforms = np.asarray(uniforms, np.float32)
+        uniforms = self._host_uniforms(uniforms)
         tw, th = self.tile
         shapes = ((th, tw), (th // 2, tw // 2), (th // 2, tw // 2))
         real = max(0, min(self.local, self.n_streams - self.rank * self.local))
@@ -192,16 +220,23 @@ class MixingWall:
         Returns (wall_y, wall_u, wall_v, mixed).
 
         On the card every cell takes the frame kernel's cell launch, with
-        the identity uniforms without ``uniforms``; on the CPU default cells
-        take the products of ops/matscale.py, per-cell uniforms the plain
-        per-cell fold."""
+        the identity uniforms without ``uniforms``, straight onto the wall
+        (one card) or this rank's band (aligned ranks); on the CPU default
+        cells take the products of ops/matscale.py, per-cell uniforms the
+        plain per-cell fold, and the tiles are assembled."""
         if gains is None:
-            gains = self.default_gains()
-        if (uniforms is None and self._plan is not None
+            gains = self._gains
+        if uniforms is None:
+            uniforms = self._unis
+        if self._canvas is not None:
+            # a cell past the last stream comes out blank (luma 0, chroma
+            # 128: the kernel's clear)
+            video = tuple(frame.composite_cells_cuda(
+                self.tile, [ys, us, vs], PixelFormat.y420p,
+                self._host_uniforms(uniforms), grid=self._canvas))
+        elif (uniforms is self._unis and self._plan is not None
                 and self.device.type == "cpu"):
-            tiles = scale_y420p_batch(ys, us, vs, self._plan)
+            video = self._assemble(scale_y420p_batch(ys, us, vs, self._plan))
         else:
-            if uniforms is None:
-                uniforms = self.default_uniforms()
-            tiles = self._scale_cells(ys, us, vs, uniforms)
-        return self._assemble(tiles) + (self._mix_audio(audio, gains),)
+            video = self._assemble(self._scale_cells(ys, us, vs, uniforms))
+        return video + (self._mix_audio(audio, gains),)

@@ -9,8 +9,9 @@ the device resampler (< 1e-4 against the host route) and the SRC stage's
 bookkeeping; the ladder's rungs (one frame-kernel launch each, 0 LSB
 against the plain composite; the products, kept as a comparison, within 1
 LSB and raising under the TF32 switches), the frame kernel's cell launch
-(0 LSB against the per-cell plain fold, one launch per 32 cells) and the
-mixing wall's default and per-cell paths through it (0 LSB); the upload
+(0 LSB against the per-cell plain fold, one launch per 32 cells; onto a
+canvas of cell rows and columns, chained bands included) and the mixing
+wall's default and per-cell paths through it (0 LSB); the upload
 barrier's copies, many in flight at once (exact).  Marked ``cuda``; they skip where there is no card.  Run them on the
 card with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerance: 0 LSB for pixels (the frame kernels are bit-exact against the
@@ -563,6 +564,55 @@ def test_cell_launch_matches_per_cell_plain_fold_on_card(card, cell, n):
     for i, w in enumerate(want):
         for g, wp, r in zip(got, w, (th, th // 2, th // 2)):
             assert torch.equal(g[i * r:(i + 1) * r], wp)
+
+
+@pytest.mark.parametrize("n,cols,rows,cell", [
+    (64, 8, 8, (240, 136)), (60, 8, 8, (240, 136)), (64, 5, 13, (34, 18)),
+    (40, 7, 6, (34, 18)), (100, 12, 9, (34, 18)), (70, 40, 2, (34, 18))],
+    ids=lambda v: str(v))
+def test_cell_canvas_matches_plain_canvas_on_card(card, n, cols, rows, cell):
+    """Frames straight onto a canvas of cell rows and columns: bit for bit
+    the plain canvas (each source alone on its cleared cell, every other
+    cell cleared), chained bands included (5, 7, 12 and 40 columns do not
+    divide 32); one launch per 32 cells, and new frames at new addresses
+    through the same kept table."""
+    rng = np.random.default_rng(n + cols)
+    unis = _cell_unis(n, (192, 108), cell, rng)
+    for _ in range(2):
+        ys, us, vs = _y420p(rng, 192, 108, card, n)
+        launches, calls = frame.launches, composite.calls
+        got = frame.composite_cells_cuda(cell, [ys, us, vs], PF.y420p, unis,
+                                         grid=(cols, rows))
+        assert frame.launches == launches + -(-n // CAP)
+        assert composite.calls == calls
+        want = composite.composite_cells_torch(
+            cell, [([ys[i], us[i], vs[i]], PF.y420p, unis[i])
+                   for i in range(n)], card, grid=(cols, rows))
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.shape == w.shape and torch.equal(g, w)
+
+
+def test_wall_canvas_on_card_over_chained_launches(card):
+    """40 streams on a 7x6 wall: the per-cell tick is two launches, the
+    second chained onto the row they share; the canvas equals the plain
+    one and the audio the host sum."""
+    rng = np.random.default_rng(41)
+    n, sw, sh = 40, 96, 54
+    wall = MixingWall(n_streams=n, stream_size=(sw, sh), canvas_size=(224, 108),
+                      grid=(7, 6))
+    assert wall.tile == (32, 18)
+    ys, us, vs = _y420p(rng, sw, sh, card, n)
+    pcm = rng.integers(-32768, 32768, (n, 96), np.int64).astype(np.int16)
+    unis = _cell_unis(n, (sw, sh), wall.tile, rng)
+    launches, calls = frame.launches, composite.calls
+    out = wall.step(ys, us, vs, wall.shard(pcm), uniforms=unis)
+    assert frame.launches == launches + 2 and composite.calls == calls
+    want = composite.composite_cells_torch(
+        wall.tile, [([ys[i], us[i], vs[i]], PF.y420p, unis[i])
+                    for i in range(n)], card, grid=(7, 6))
+    assert all(torch.equal(g, w) for g, w in zip(out[:3], want))
+    host = np.clip(pcm.astype(np.int64).sum(0), -32768, 32767)
+    assert np.array_equal(out[3].cpu().numpy(), host)
 
 
 @pytest.mark.parametrize("n", [16, 14], ids=["aligned 16", "blank-fill 14"])

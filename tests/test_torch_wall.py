@@ -166,6 +166,36 @@ def test_audio_truncates_and_saturates():
     assert torch.equal(wall.default_gains(), torch.ones(64))
 
 
+def test_default_gains_and_uniforms_are_kept_per_wall(monkeypatch):
+    """A tick without gains or uniforms rebuilds neither: the gains are
+    made once on the wall's device, the identity uniforms once on the host;
+    what ``default_gains`` / ``default_uniforms`` hand out are copies the
+    caller may change."""
+    n, stream, canvas = 18, (32, 16), (80, 32)
+    wall = MixingWall(n_streams=n, stream_size=stream, canvas_size=canvas,
+                      audio_samples=8, device="cpu")
+    ys, us, vs, audio, _gains = (wall.shard(a)
+                                 for a in _inputs(3, n, *stream, 8))
+    first = wall.step(ys, us, vs, audio)
+    kept_gains, kept_unis = wall._gains, wall._unis
+
+    def rebuilt(*args, **kwargs):
+        raise AssertionError("a default was rebuilt in the tick")
+
+    monkeypatch.setattr(wall, "shard", rebuilt)
+    second = wall.step(ys, us, vs, audio)
+    assert wall._gains is kept_gains and wall._unis is kept_unis
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert not kept_unis.flags.writeable
+    gains, unis = wall.default_gains(), wall.default_uniforms()
+    assert torch.equal(gains, kept_gains) and np.array_equal(unis, kept_unis)
+    gains[0], unis[0] = 5.0, 0.0
+    assert float(wall._gains[0]) == 1.0 and wall._unis[0, 0] != 0.0
+    # the same audio as gains of ones given by hand
+    explicit = wall.step(ys, us, vs, audio, torch.ones(n))
+    assert torch.equal(explicit[3], first[3])
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(n_streams=48, stream_size=(32, 16), canvas_size=(96, 64),
          grid=(4, 4)),                                  # grid too small

@@ -7,16 +7,25 @@ and the routes that take it on the card, on the CPU.
   the luma and the chroma grid, at the wall's 240x136 tile and at a 34x18
   tile whose chroma cell (17x9) is odd both ways; every pixel a source
   changes lies inside its box; the box cache tells cell sizes apart.
+* The canvas of cell rows and columns: boxes shifted to each cell's row
+  and column (grids whose width does not divide 32 included), the launch
+  bands and their chaining, the launch table kept per layout against a
+  fresh build after new frames at new addresses, and the launches run on
+  a CPU emulation of the kernel's launch semantics against the plain
+  canvas.
 * The plain version of the cell launch: bit for bit the per-cell fold (one
-  frame composite per cell, stacked), and within 1 LSB of the JAX
-  package's ``MixingWall`` on the 8-device CPU mesh of tests/conftest.py.
+  frame composite per cell, stacked, or blanked and placed on the canvas
+  by the wall's own assembly), and within 1 LSB of the JAX package's
+  ``MixingWall`` on the 8-device CPU mesh of tests/conftest.py.
 * The routes on the card, with the cell launch and the frame launch
   replaced by a recorder that folds with ``composite.apply_composite`` and
   the plain version replaced by a raiser: on a ``cuda`` wall both video
   paths make one cell call a tick (ceil(n / 32) launches) for 16, 60 and 64
   streams, no product call and no plain call, and give the CPU wall's
   per-cell pixels bit for bit; ``scale_y420p`` makes one frame-kernel call
-  a rung and ``scale_y420p_batch`` one cell call.  The ladder's route is
+  a rung and ``scale_y420p_batch`` one cell call; on one card the wall
+  assembles nothing, and an aligned rank (a stubbed group of 4) writes its
+  band of rows straight from its cell call.  The ladder's route is
   decided by the planes' device, so ``meta`` tensors stand in for CUDA
   ones there.  A cell grid on any target but y420p raises.
 
@@ -38,6 +47,7 @@ from swiftvideo_tpu_torch.media import PixelFormat as PortPF
 from swiftvideo_tpu_torch.ops import composite, frame, matscale
 from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms, rect_uniforms
 from swiftvideo_tpu_torch.parallel import MixingWall
+from swiftvideo_tpu_torch.parallel import wall as wall_mod
 
 CPU = torch.device("cpu")
 CAP = frame.CAPACITY
@@ -150,9 +160,10 @@ def test_cell_grid_needs_a_y420p_target(out_fmt):
 @pytest.mark.parametrize("cell,size", [((34, 18), (34, 27)),
                                        ((33, 18), (33, 36)),
                                        ((34, 18), (51, 36)),
-                                       ((34, 18), (68, 36))],
+                                       ((68, 18), (34, 36))],
                          ids=["rows do not divide", "odd cell",
-                              "columns do not divide", "two columns"])
+                              "columns do not divide",
+                              "cell wider than the target"])
 def test_cell_grid_must_tile_the_target(cell, size):
     outs = composite.clear_planes(Y420P, size, CPU)
     with pytest.raises(ValueError, match="do not tile"):
@@ -215,6 +226,203 @@ def test_box_cache_tells_cell_sizes_apart():
     assert second[1, 0, 0] == 68 and first[1, 0, 0] == 136
 
 
+# (cell, columns): the wall's 240x136 tile on its 8 columns, the 34x18 tile
+# (odd chroma cell) on 3, 5 and 7 columns (5 and 7 do not divide 32), and a
+# 64x36 tile on 5
+GRIDS = [((240, 136), 8), ((34, 18), 3), ((34, 18), 5), ((34, 18), 7),
+         ((64, 36), 5)]
+
+
+@pytest.mark.parametrize("cell,cols", GRIDS,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else f"{v} columns")
+def test_cell_boxes_on_a_grid_are_cell_boxes_shifted_to_row_and_column(cell,
+                                                                        cols):
+    tw, th = cell
+    n = 2 * cols + 3
+    unis = _cell_uniforms(n, (64, 36), cell, np.random.default_rng(cols))
+    boxes = frame.cell_boxes(unis, cell, cols)
+    local = frame.border_boxes(unis, cell, Y420P)
+    assert boxes.shape == (n, 2, 4) and boxes.dtype == np.int32
+    for i in range(n):
+        r, c = divmod(i, cols)
+        assert np.array_equal(boxes[i, 0], local[i, 0]
+                              + [r * th, r * th, c * tw, c * tw])
+        assert np.array_equal(boxes[i, 1], local[i, 1]
+                              + [r * th // 2, r * th // 2, c * tw // 2,
+                                 c * tw // 2])
+        for (y0, y1, x0, x1), (gh, gw) in zip(boxes[i], ((th, tw),
+                                                         (th // 2, tw // 2))):
+            assert r * gh <= y0 <= y1 <= (r + 1) * gh
+            assert c * gw <= x0 <= x1 <= (c + 1) * gw
+    # one column is the stack's boxes, and the table carries the grid's
+    assert np.array_equal(frame.cell_boxes(unis, cell, 1),
+                          frame.cell_boxes(unis, cell))
+    planes, _ = _batch(np.random.default_rng(4), n, (64, 36), cell)
+    table = frame.cell_descriptors(cell, planes, Y420P, unis, cols)
+    assert np.array_equal(table["box"], boxes)
+
+
+# (cells, columns, rows)
+# (100 on 12 columns: two chains, the first of three launches)
+PLANS = [(64, 8, 8), (60, 8, 8), (64, 5, 13), (100, 7, 15), (70, 40, 2),
+         (33, 1, 33), (10, 4, 4), (1, 3, 2), (100, 12, 9)]
+
+
+@pytest.mark.parametrize("n,cols,rows", PLANS,
+                         ids=lambda v: str(v))
+def test_cell_launch_plan_writes_a_row_before_a_chained_launch_reads_it(
+        n, cols, rows):
+    """Launches take the cells in row-major order, at most CAPACITY each;
+    one runs chained exactly when its first row holds cells of the launch
+    before; a chained launch reads only rows some launch wrote, an
+    unchained one writes only rows none wrote, and together they write
+    every row of the canvas."""
+    plan = frame.cell_launch_plan(n, cols, rows)
+    assert [(a, b) for a, b, *_ in plan] == frame.launch_plan(n)
+    written = set()
+    for a, b, r0, r1, chained in plan:
+        assert b - a <= CAP and 0 <= r0 < r1 <= rows
+        assert r0 == a // cols and r1 >= -(-b // cols)
+        assert chained == (a % cols != 0)
+        band = set(range(r0, r1))
+        if chained:
+            assert band <= written
+        else:
+            assert not band & written
+        written |= band
+    assert written == set(range(rows))
+    # grids whose rows take whole launches never chain
+    if CAP % cols == 0:
+        assert not any(p[4] for p in plan)
+
+
+def _fresh_params(cell, grid, planes, unis, outs):
+    """Each launch's FrameParams built from nothing kept: the table of
+    the batch (``cell_descriptors``), cut to the launch, its boxes moved up
+    to the band, packed onto the band's slices of ``outs``."""
+    tw, th = cell
+    cols, rows = grid
+    table = frame.cell_descriptors(cell, planes, Y420P, unis, cols)
+    launches = []
+    for a, b, r0, r1, chained in frame.cell_launch_plan(len(unis), cols, rows):
+        band_rows = table[a:b].copy()
+        band_rows["box"][:, 0, :2] -= r0 * th
+        band_rows["box"][:, 1, :2] -= r0 * (th // 2)
+        band = [o[r0 * r:r1 * r] for o, r in zip(outs, (th, th // 2, th // 2))]
+        launches.append(frame.pack_params((cols * tw, (r1 - r0) * th), Y420P,
+                                          band, band_rows, chained, cell=cell))
+    return launches
+
+
+@pytest.mark.parametrize("n,cols,rows", [(9, 3, 3), (40, 7, 6), (64, 8, 8),
+                                         (70, 40, 2)], ids=lambda v: str(v))
+def test_kept_launch_table_after_a_pointer_rewrite_equals_a_fresh_build(
+        n, cols, rows):
+    """Three batches of new frames at new addresses, one layout: the
+    table is built once, and each call's params (the kept ones with the
+    pointers written in) are byte for byte a fresh build's; new uniforms
+    make a new table."""
+    cell = (34, 18)
+    rng = np.random.default_rng(40 + n)
+    unis = _cell_uniforms(n, (32, 16), cell, rng)
+    size = (cols * cell[0], rows * cell[1])
+    frame.cell_layout.cache_clear()
+    for k in range(4):
+        if k == 3:
+            unis = unis.copy()
+            unis[0] = rect_uniforms((32, 16), cell, x=2.25, y=1.25, w=20.5,
+                                    h=10.5).pack()
+        planes, _ = _batch(rng, n, (32, 16), cell)
+        outs = composite.clear_planes(Y420P, size, CPU)
+        got = frame.cell_params(cell, (cols, rows), planes, Y420P, unis, outs)
+        want = _fresh_params(cell, (cols, rows), planes, unis, outs)
+        assert len(got) == len(want) == len(frame.launch_plan(n))
+        assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
+    info = frame.cell_layout.cache_info()
+    assert (info.misses, info.hits) == (2, 2)
+
+
+def _run_emulated(launches, planes, outs, cell, cols):
+    """The kernel's launch semantics on CPU tensors, read from the params
+    alone: a launch's band starts at its target pointers (offsets into
+    ``outs``) and is cleared unless chained; each source row's frame is
+    found from its plane pointers and frame strides, and the source is
+    composited alone onto its frame's cell of the band, which must hold
+    its boxes, changing no pixel outside them."""
+    tw, th = cell
+    cell_hw = ((th, tw), (th // 2, tw // 2), (th // 2, tw // 2))
+    bases = [p.data_ptr() for p in planes]
+    steps = [p.stride(0) for p in planes]
+    for words in launches:
+        params = words.view(frame._PARAMS).reshape(())
+        head = params["head"]
+        assert (int(head["cell_w"]), int(head["cell_h"])) == cell
+        offs = [int(a) - o.data_ptr() for a, o in zip(head["out"], outs)]
+        r0 = offs[0] // (outs[0].stride(0) * th)
+        assert offs == [r0 * h * o.stride(0) for o, (h, _w) in zip(outs,
+                                                                  cell_hw)]
+        band_rows = int(head["h"]) // th
+        assert int(head["w"]) == outs[0].shape[1]
+        band = [o[r0 * h:(r0 + band_rows) * h] for o, (h, _w) in zip(outs,
+                                                                    cell_hw)]
+        if not int(head["chained"]):
+            for t, fill in zip(band, (0, 128, 128)):
+                t.fill_(fill)
+        for row in params["src"][:int(head["n"])]:
+            at = [int(q) - b for q, b in zip(row["plane"], bases)]
+            i = at[0] // steps[0]
+            assert at == [i * st for st in steps]
+            r, c = divmod(i, cols)
+            r -= r0
+            cells = [t[r * h:(r + 1) * h, c * w:(c + 1) * w]
+                     for t, (h, w) in zip(band, cell_hw)]
+            new = composite.apply_composite(cells, Y420P,
+                                            [p[i] for p in planes], Y420P,
+                                            row["u"])
+            for t, nw, box, (h, w) in zip(cells, new, (row["box"][0],
+                                                      row["box"][1],
+                                                      row["box"][1]),
+                                          cell_hw):
+                y0, y1, x0, x1 = (int(v) for v in box)
+                y0, y1, x0, x1 = y0 - r * h, y1 - r * h, x0 - c * w, x1 - c * w
+                assert 0 <= y0 <= y1 <= h and 0 <= x0 <= x1 <= w
+                outside = torch.ones_like(t, dtype=torch.bool)
+                outside[y0:y1, x0:x1] = False
+                assert torch.equal(nw[outside], t[outside])
+                t.copy_(nw)
+
+
+@pytest.mark.parametrize("n,cols,rows", [(9, 3, 3), (40, 7, 6), (60, 8, 8),
+                                         (70, 40, 2), (5, 1, 5), (100, 12, 9)],
+                         ids=lambda v: str(v))
+def test_cell_launches_on_an_emulated_kernel_give_the_plain_canvas(n, cols,
+                                                                   rows):
+    """The host side of the canvas launch, end to end: the params of every
+    launch, run as the kernel runs a launch onto a target that starts as
+    garbage (``torch.empty`` on the card), give the plain version's canvas
+    bit for bit, blank cells and chained bands included."""
+    cell = (34, 18)
+    rng = np.random.default_rng(50 + n)
+    planes, unis = _batch(rng, n, (64, 36), cell)
+    size = (cols * cell[0], rows * cell[1])
+    outs = [torch.from_numpy(_u8(rng, *t.shape))
+            for t in composite.clear_planes(Y420P, size, CPU)]
+    launches = frame.cell_params(cell, (cols, rows), planes, Y420P, unis, outs)
+    _run_emulated(launches, planes, outs, cell, cols)
+    want = frame.composite_cells_cuda(cell, planes, Y420P, unis,
+                                      grid=(cols, rows))
+    assert all(torch.equal(g, w) for g, w in zip(outs, want))
+
+
+def test_cell_grid_must_hold_the_batch():
+    planes, unis = _batch(np.random.default_rng(6), 7, (32, 16), (34, 18))
+    for grid in ((3, 2), (0, 8), (7, 0)):
+        with pytest.raises(ValueError, match="holds fewer"):
+            frame.composite_cells_cuda((34, 18), planes, Y420P, unis,
+                                       grid=grid)
+
+
 # --- the plain version -------------------------------------------------------
 
 @pytest.mark.parametrize("n", [1, 5, 33])
@@ -237,6 +445,33 @@ def test_cell_plain_version_equals_the_per_cell_fold(cell, n):
                                                  Y420P, unis[i])])
         for g, o, r in zip(got, one, (th, th // 2, th // 2)):
             assert torch.equal(g[i * r:(i + 1) * r], o)
+
+
+@pytest.mark.parametrize("n,cols,rows", [(7, 3, 3), (60, 8, 8), (10, 4, 4),
+                                         (12, 5, 3)], ids=lambda v: str(v))
+def test_cell_plain_canvas_equals_the_assembled_per_cell_fold(n, cols, rows):
+    """The plain canvas is the per-cell fold blanked and placed by the
+    wall's own ``_blank_fix`` and ``_rows_assemble``, bit for bit, blank
+    cells (luma 0, chroma 128) included."""
+    cell = (34, 18)
+    tw, th = cell
+    planes, unis = _batch(np.random.default_rng(60 + n), n, (64, 36), cell)
+    calls = composite.calls
+    got = frame.composite_cells_cuda(cell, planes, Y420P, unis,
+                                     grid=(cols, rows))
+    assert composite.calls == calls + n
+    wall = MixingWall(n_streams=n, stream_size=(64, 36),
+                      canvas_size=(cols * tw, rows * th), grid=(cols, rows),
+                      device="cpu")
+    assert wall.tile == cell
+    stack = _per_cell_fold(cell, planes, unis)
+    want = [wall_mod._rows_assemble(wall._blank_fix(t.view(n, h, w), fill),
+                                    rows, cols)
+            for t, fill, (h, w) in zip(stack, wall_mod._FILL,
+                                       ((th, tw), (th // 2, tw // 2),
+                                        (th // 2, tw // 2)))]
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_cell_launch_refuses_bad_batches():
@@ -315,26 +550,32 @@ def test_cell_plain_version_within_one_lsb_of_jax_wall(wall_case, per_cell):
 def recorder(monkeypatch):
     """The cell launch and the frame launch replaced by stand-ins that
     record each call and fold with ``composite.apply_composite`` (no plain-
-    version call); the plain version raises.  Returns the list of calls:
-    ("cells", cell size, (planes, fmt, uniforms)) or ("frame", size,
+    version call), each cell onto its place on the canvas of the call's
+    grid; the plain version raises.  Returns the list of calls: ("cells",
+    cell size, (planes, fmt, uniforms), grid) or ("frame", size,
     sources)."""
     seen = []
 
-    def cells(cell_size, planes, fmt, uniforms, out_fmt=Y420P):
+    def cells(cell_size, planes, fmt, uniforms, out_fmt=Y420P, *, grid=None):
         seen.append(("cells", tuple(cell_size), (list(planes), fmt,
-                                                 np.asarray(uniforms))))
+                                                 np.asarray(uniforms)), grid))
         w, h = cell_size
         n = planes[0].shape[0]
+        cols, rows = (1, n) if grid is None else grid
+        cell_hw = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
         if planes[0].device.type == "meta":
-            return [torch.empty(s, dtype=torch.uint8, device="meta")
-                    for s in ((n * h, w), (n * h // 2, w // 2),
-                              (n * h // 2, w // 2))]
-        folds = []
+            return [torch.empty((rows * ch, cols * cw), dtype=torch.uint8,
+                                device="meta") for ch, cw in cell_hw]
+        canvas = composite.clear_planes(Y420P, (cols * w, rows * h), CPU)
         for i in range(n):
-            out = composite.clear_planes(Y420P, cell_size, CPU)
-            folds.append(composite.apply_composite(
-                out, Y420P, [p[i] for p in planes], fmt, uniforms[i]))
-        return [torch.cat(p) for p in zip(*folds)]
+            r, c = divmod(i, cols)
+            cell = [t[r * ch:(r + 1) * ch, c * cw:(c + 1) * cw]
+                    for t, (ch, cw) in zip(canvas, cell_hw)]
+            new = composite.apply_composite(cell, Y420P, [p[i] for p in planes],
+                                            fmt, uniforms[i])
+            for t, nw in zip(cell, new):
+                t.copy_(nw)
+        return canvas
 
     def one(size, sources, out_fmt=Y420P, *, device=None, target=None):
         seen.append(("frame", tuple(size), list(sources)))
@@ -377,11 +618,15 @@ def _cpu_wall_per_cell(n, stream, canvas, inputs, unis):
     return wall._assemble(tiles)
 
 
+def _no_assembly(*args, **kwargs):
+    raise AssertionError("the card's one-device route assembled tiles")
+
+
 @pytest.mark.parametrize("wall_case", WALLS, ids=lambda c: c[0])
 @pytest.mark.parametrize("per_cell", [False, True],
                          ids=["default cells", "per-cell uniforms"])
-def test_card_wall_makes_one_cell_call_a_tick(recorder, card_wall, wall_case,
-                                              per_cell):
+def test_card_wall_makes_one_cell_call_a_tick(recorder, card_wall, monkeypatch,
+                                              wall_case, per_cell):
     _name, n, stream, canvas = wall_case
     wall = card_wall(n, stream, canvas)
     assert wall.device == torch.device("cuda", 0) and wall._plan is not None
@@ -390,17 +635,63 @@ def test_card_wall_makes_one_cell_call_a_tick(recorder, card_wall, wall_case,
             if per_cell else None)
     products, calls = matscale.calls, composite.calls
     ys, us, vs, audio, gains = (torch.from_numpy(a) for a in inputs)
-    out = wall.step(ys, us, vs, audio, gains, uniforms=unis)
+    # one card: straight onto the canvas, no assembly copy
+    with monkeypatch.context() as m:
+        m.setattr(wall_mod, "_rows_assemble", _no_assembly)
+        m.setattr(MixingWall, "_blank_fix", _no_assembly)
+        out = wall.step(ys, us, vs, audio, gains, uniforms=unis)
     assert (matscale.calls, composite.calls) == (products, calls)
     assert len(recorder) == 1
-    kind, cell, (planes, fmt, got_unis) = recorder[0]
+    kind, cell, (planes, fmt, got_unis), grid = recorder[0]
     assert (kind, cell, fmt, len(got_unis)) == ("cells", wall.tile, Y420P, n)
+    assert grid == wall.grid_wh
     assert len(frame.launch_plan(n)) == math.ceil(n / CAP)
     want_unis = wall.default_uniforms() if unis is None else unis
     assert np.array_equal(got_unis, want_unis)
     assert all(torch.equal(p, a) for p, a in zip(planes, (ys, us, vs)))
     want = _cpu_wall_per_cell(n, stream, canvas, inputs, want_unis)
     assert all(torch.equal(g, w) for g, w in zip(out[:3], want))
+
+
+@pytest.mark.parametrize("per_cell", [False, True],
+                         ids=["default cells", "per-cell uniforms"])
+def test_card_aligned_rank_writes_its_band_of_rows(recorder, card_wall,
+                                                   monkeypatch, per_cell):
+    """16 streams on a 4x4 wall over 4 ranks (aligned: a row of cells a
+    rank): on the card each rank's one cell call puts its 4 streams
+    straight onto its band of rows, which equals that band of the
+    one-device CPU wall; no assembly, no video collective.  The audio is
+    the rank's partial fold (the all_reduce stubbed to nothing)."""
+    n, stream, canvas, world = 16, (32, 16), (64, 32), 4
+    inputs = _inputs(70, n, stream, 8)
+    unis = (_cell_uniforms(n, stream, (16, 8), np.random.default_rng(7))
+            if per_cell else None)
+    want = _cpu_wall_per_cell(n, stream, canvas, inputs, np.stack(
+        [identity_uniforms(stream, (16, 8)).pack()] * n)
+        if unis is None else unis)
+    monkeypatch.setattr(wall_mod.dist, "get_world_size", lambda g: world)
+    monkeypatch.setattr(wall_mod.dist, "all_reduce", lambda t, group: None)
+    monkeypatch.setattr(wall_mod.dist, "all_gather", _no_assembly)
+    monkeypatch.setattr(wall_mod, "_rows_assemble", _no_assembly)
+    monkeypatch.setattr(MixingWall, "_blank_fix", _no_assembly)
+    ys, us, vs, audio, gains = (torch.from_numpy(a) for a in inputs)
+    for rank in range(world):
+        monkeypatch.setattr(wall_mod.dist, "get_rank", lambda g, r=rank: r)
+        wall = MixingWall(n_streams=n, stream_size=stream, canvas_size=canvas,
+                          audio_samples=8, group=object())
+        assert wall.aligned and wall.local == 4 and wall.tile == (16, 8)
+        lo = slice(4 * rank, 4 * rank + 4)
+        out = wall.step(ys[lo], us[lo], vs[lo], audio[lo], gains[lo],
+                        uniforms=None if unis is None else unis[lo])
+        assert recorder[-1][3] == (4, 1)
+        if unis is None:
+            assert np.array_equal(recorder[-1][2][2], wall.default_uniforms())
+        for got, full, h in zip(out[:3], want, (8, 4, 4)):
+            assert torch.equal(got, full[rank * h:(rank + 1) * h])
+        part = np.clip(np.trunc((inputs[3][lo].astype(np.float64)
+                                 * inputs[4][lo, None]).sum(0)), -32768, 32767)
+        assert np.array_equal(out[3].numpy(), part)
+    assert len(recorder) == world
 
 
 def test_card_ladder_makes_one_launch_a_rung(recorder):
@@ -436,6 +727,7 @@ def test_card_batch_scale_makes_one_cell_call(recorder):
     oy, ou, ov = matscale.scale_y420p_batch(ys, cs, cs, plan)
     assert [r[:2] for r in recorder] == [("cells", (48, 36))]
     planes, fmt, unis = recorder[0][2]
+    assert recorder[0][3] is None
     assert fmt == Y420P and matscale.calls == products
     assert all(p is q for p, q in zip(planes, (ys, cs, cs)))
     assert unis.shape == (n, 29) and (unis == plan.uniform).all()

@@ -9,11 +9,16 @@ and drives ``chip_smoke.py``'s batch shapes through the checkout's own
 entry points: the transcode ladder (``matscale.scale_y420p``, a 1080p y420p
 frame to the three rungs of ``LADDER_RUNGS``) and the 64-stream wall
 (``MixingWall.step``, 1080p streams onto 240x136 tiles of a 1920x1088
-canvas, 800 stereo samples a stream, made on the card from seed 15): the
-default-cell tick and the per-cell tick with cell 0 at opacity 0.5.  Each
-result is held against the checkout's plain composite first: within 1 LSB
+canvas, 800 stereo samples a stream): the default-cell tick, the per-cell
+tick with cell 0 at opacity 0.5, and the default-cell tick of 60 streams
+on the same grid (4 blank cells).  The wall's streams are a ring of
+``WALL_RING`` batches made on the card (batch k from seed 15 + k), and
+each tick takes the next batch, so every tick composites new frames at
+new addresses, as a live wall does.  Each result, on every batch of the
+ring, is held against the checkout's plain composite first: within 1 LSB
 (a checkout whose ladder and default cells are float32 products is 1 LSB
-off in places), and the audio exactly.  For each it prints the call
+off in places), blank cells blank, and the audio exactly.  For each it
+prints the call
 (CUDA events, median of batches of back-to-back calls), the device time
 (every device activity torch.profiler records, summed, and their count a
 call) and the host microseconds a call (``chip_smoke.py``'s helpers), as
@@ -35,8 +40,9 @@ import torch
 # these use is the checkout's at ROOT
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (W, H, LADDER_RUNGS, WALL_CANVAS,  # noqa: E402
-                        WALL_SAMPLES, WALL_STREAMS, camera_planes,
-                        device_total_ms, host_us, max_err, timed_ms)
+                        WALL_RING, WALL_SAMPLES, WALL_STREAMS, camera_planes,
+                        device_total_ms, host_us, max_err, ring_of,
+                        timed_ms, wall_batches)
 
 
 def main() -> None:
@@ -77,50 +83,68 @@ def main() -> None:
         src, r, identity_uniforms((W, H), r))) for r, out in zip(
             LADDER_RUNGS, ladder()))}
 
-    # the wall
+    # the wall, over a ring of input batches
     n = WALL_STREAMS
-    gen = torch.Generator(device=dev).manual_seed(15)
-    ys = torch.randint(0, 256, (n, H, W), dtype=torch.uint8, device=dev,
-                       generator=gen)
-    us, vs = (torch.randint(0, 256, (n, H // 2, W // 2), dtype=torch.uint8,
-                            device=dev, generator=gen) for _ in range(2))
+    ring = wall_batches(dev, n, 15, WALL_RING)
     pcm = np.random.default_rng(15).integers(
         -32768, 32768, (n, 2 * WALL_SAMPLES), np.int64).astype(np.int16)
     wall = MixingWall(n_streams=n, stream_size=(W, H), canvas_size=WALL_CANVAS,
                       audio_samples=WALL_SAMPLES, device=dev)
+    n60 = n - 4
+    wall60 = MixingWall(n_streams=n60, stream_size=(W, H),
+                        canvas_size=WALL_CANVAS, audio_samples=WALL_SAMPLES,
+                        device=dev)
+    ring60 = [tuple(p[:n60] for p in batch) for batch in ring]
     tw, th = wall.tile
     gw = wall.grid_wh[0]
     audio = wall.shard(pcm)
     unis = wall.default_uniforms()
     unis[0] = identity_uniforms((W, H), (tw, th), opacity=0.5).pack()
-    want_audio = np.clip(pcm.astype(np.int64).sum(0), -32768, 32767)
+    next_plan, next_cells, next60 = ring_of(ring), ring_of(ring), ring_of(ring60)
 
-    def tick_plan():
-        return wall.step(ys, us, vs, audio)
+    def tick_plan(batch=None):
+        return wall.step(*(batch or next_plan()), audio)
 
-    def tick_cells():
-        return wall.step(ys, us, vs, audio, uniforms=unis)
+    def tick_cells(batch=None):
+        return wall.step(*(batch or next_cells()), audio, uniforms=unis)
 
-    for name, tick, cell_unis in (("wall plan tick", tick_plan, None),
-                                  ("wall per-cell tick", tick_cells, unis)):
-        out = tick()
-        if not np.array_equal(out[3].cpu().numpy(), want_audio):
-            raise SystemExit(f"{name}: the audio differs from the host sum")
+    def tick60(batch=None):
+        return wall60.step(*(batch or next60()), audio[:n60])
+
+    def cell(out, s):
+        r, c = divmod(s, gw)
+        return [p[r * h:(r + 1) * h, c * w:(c + 1) * w]
+                for p, (w, h) in zip(out[:3], ((tw, th), (tw // 2, th // 2),
+                                               (tw // 2, th // 2)))]
+
+    for name, tick, count, cell_unis in (
+            ("wall plan tick", tick_plan, n, None),
+            ("wall per-cell tick", tick_cells, n, unis),
+            ("wall 60-stream tick", tick60, n60, None)):
+        want_audio = np.clip(pcm[:count].astype(np.int64).sum(0), -32768, 32767)
         err = 0
-        for s in range(n):
-            r, c = divmod(s, gw)
-            cell = [p[r * h:(r + 1) * h, c * w:(c + 1) * w]
-                    for p, (w, h) in zip(out[:3], ((tw, th), (tw // 2, th // 2),
-                                                   (tw // 2, th // 2)))]
-            uni = (identity_uniforms((W, H), (tw, th)) if cell_unis is None
-                   else cell_unis[s])
-            err = max(err, check(f"{name} cell {s}", cell,
-                                 plain([ys[s], us[s], vs[s]], (tw, th), uni)))
+        for k in range(WALL_RING):
+            batch = ring[k] if count == n else ring60[k]
+            out = tick(batch)
+            if not np.array_equal(out[3].cpu().numpy(), want_audio):
+                raise SystemExit(f"{name}: the audio differs from the host sum")
+            for s in range(count):
+                uni = (identity_uniforms((W, H), (tw, th)) if cell_unis is None
+                       else cell_unis[s])
+                err = max(err, check(f"{name} batch {k} cell {s}", cell(out, s),
+                                     plain([p[s] for p in batch], (tw, th),
+                                           uni)))
+            for s in range(count, n):
+                c = cell(out, s)
+                if int(c[0].max()) or not all(bool((p == 128).all())
+                                              for p in c[1:]):
+                    raise SystemExit(f"{name} batch {k}: cell {s} not blank")
         errs[name] = err
 
     result = {}
     for name, fn in (("ladder", ladder), ("wall plan tick", tick_plan),
-                     ("wall per-cell tick", tick_cells)):
+                     ("wall per-cell tick", tick_cells),
+                     ("wall 60-stream tick", tick60)):
         dev_ms, acts = device_total_ms(fn, n=10)
         result[name] = {"ms": timed_ms(fn, reps=10, batch=3),
                         "device_ms": dev_ms, "device_activities": acts,
