@@ -88,9 +88,14 @@ started together) and drives the port's paths at full size:
   Composer, 10 warm video ticks, then three windows of 60: host ms per
   video tick (p50 and p99 of the steps that mix a frame, and all host work
   a tick with the inputs' publishing), host microseconds a tick of each
-  stage (cProfile), device busy ms and the device's idle share
-  (torch.profiler's CUDA activities), with phase 4's launch, plain-call
-  and 0 LSB checks.
+  stage (cProfile; the audio chain's stages too, and the inputs' bus
+  appends split into audio and pictures), the host ms of the audio-only
+  steps, the TimePoints built an audio tick (cProfile's count), device
+  busy ms and the device's idle share (torch.profiler's CUDA activities),
+  with phase 4's launch, plain-call and 0 LSB checks; and every mixed
+  audio frame of the run equal to a plain replay (each sample the
+  station's mixer digested fed, in its clock step, through a fresh
+  AudioMixer on its own StepClock).
 
 Every kernel comparison is exact: the frame kernels are bit-exact against
 the plain version, so one differing pixel fails the run; the float32
@@ -2353,9 +2358,13 @@ class LiveStation:
     mixer's composite call is recorded in ``last_call``; ``mixed`` counts
     the mixed frames, and ``frames`` and ``mixed_audio`` hold every one, or
     with ``keep=False`` the last, as a station that sends its frames on
-    and drops them holds no more on the card."""
+    and drops them holds no more on the card.  With ``record=True``
+    ``audio_log`` holds (clock step, sample) for every sample the audio
+    mixer digests and ``audio_out`` every mixed audio frame, for
+    ``audio_replay``."""
 
-    def __init__(self, out_fmt, host_sets, ov_host, tone, keep=True):
+    def __init__(self, out_fmt, host_sets, ov_host, tone, keep=True,
+                 record=False):
         from swiftvideo_tpu_torch import core, media
         from swiftvideo_tpu_torch.compose import Composer
         from swiftvideo_tpu_torch.core import (Bus, EventBox, StepClock,
@@ -2366,7 +2375,8 @@ class LiveStation:
         # the port's modules, imported once: feed() runs in the timed steps
         self.core, self.media = core, media
         self.host_sets, self.ov_host, self.tone = host_sets, ov_host, tone
-        self.clock = StepClock(TimePoint(480, 48000))
+        self.audio_frame = TimePoint(480, 48000)
+        self.clock = StepClock(self.audio_frame)
         self.audio_bus, self.picture_bus = Bus(self.clock), Bus(self.clock)
         elements = tuple(
             Element(name=f"cam{s}", z_index=s, initial_state=ElementState(
@@ -2403,11 +2413,28 @@ class LiveStation:
             hold(self.frames, s)
             return EventBox.just(s)
 
+        self.audio_log, self.audio_out, self._stepping = [], [], False
+
         def on_audio(s):
             if s.asset_id() != "live":
                 return EventBox.nothing(None)
             hold(self.mixed_audio, s)
+            if record:
+                self.audio_out.append(s)
             return EventBox.just(s)
+
+        if record:
+            mixer = self.composer.audio_mixer
+            digest = mixer._fn
+
+            def recording(sample):
+                if self._stepping:
+                    fail("the audio mixer digested a sample inside a clock "
+                         "step: the replay feeds samples between steps")
+                self.audio_log.append((self.steps, sample))
+                return digest(sample)
+
+            mixer.set(recording)
 
         # the buses hold their subscribers weakly
         self._keep = [self.picture_bus.subscribe(Tx(on_frame)),
@@ -2445,25 +2472,36 @@ class LiveStation:
     def feed(self):
         """Publish this step's inputs: the four cameras' next frames every
         third step, and a 10 ms frame from each audio asset."""
-        c, m = self.core, self.media
         if self.steps % 3 == 0:
-            for s, planes in enumerate(
-                    self.host_sets[(self.steps // 3) % 2]):
-                self.picture_bus.append(c.EventBox.just(
-                    self.picture(f"cam{s}", m.PixelFormat.y420p, planes)))
+            self.feed_pictures()
+        self.feed_audio()
+
+    def feed_pictures(self):
+        c, m = self.core, self.media
+        for s, planes in enumerate(self.host_sets[(self.steps // 3) % 2]):
+            self.picture_bus.append(c.EventBox.just(
+                self.picture(f"cam{s}", m.PixelFormat.y420p, planes)))
+
+    def audio(self, asset, k):
+        """A 10 ms frame of tone ``k`` from ``asset`` at the next pts."""
+        m = self.media
+        return m.AudioSample(
+            buffers=(np.repeat(self.tone[k], 2),), frequency=48000,
+            channels=2, format=m.AudioFormat.s16i, sample_count=480,
+            pts_value=self.audio_pts, id_asset=asset, id_workspace="w")
+
+    def feed_audio(self):
+        c = self.core
         for k in range(4):
-            pcm = np.repeat(self.tone[k], 2)
-            self.audio_bus.append(c.EventBox.just(m.AudioSample(
-                buffers=(pcm,), frequency=48000, channels=2,
-                format=m.AudioFormat.s16i, sample_count=480,
-                pts_value=self.audio_pts, id_asset=f"cam{k}",
-                id_workspace="w")))
+            self.audio_bus.append(c.EventBox.just(self.audio(f"cam{k}", k)))
         self.audio_pts = self.audio_pts + c.TimePoint(480, 48000)
 
     def step(self) -> bool:
         """One clock step; True when it mixed a video frame."""
         n = self.mixed
+        self._stepping = True
         self.clock.step()
+        self._stepping = False
         self.steps += 1
         return self.mixed > n
 
@@ -2471,6 +2509,60 @@ class LiveStation:
         self._mixer.composite_frame = self._composite
         self.composer.close()
         self._keep = None
+
+
+def audio_replay(station) -> int:
+    """Fail unless every mixed audio frame of a ``record=True`` station
+    equals a plain replay's: the samples its mixer digested, each fed in
+    its clock step, through a fresh AudioMixer of the same settings on its
+    own StepClock (no cache of the station's mixer carries over), compared
+    sample for sample with their pts and constituents.  Returns the number
+    of frames compared."""
+    from swiftvideo_tpu_torch.core import EventBox, StepClock, Tx
+    from swiftvideo_tpu_torch.mix import AudioMixer
+    src = station.composer.audio_mixer
+    clock = StepClock(station.audio_frame)
+    mixer = AudioMixer(clock, workspace_id=src.id_workspace,
+                       frame_duration=src.frame_duration,
+                       sample_rate=src.sample_rate,
+                       channel_count=src.channel_count, delay=src.delay,
+                       output_format=src.output_format, asset_id=src.id_asset,
+                       compute_context=src.compute_context)
+    out = []
+
+    def take(sample):
+        out.append(sample)
+        return EventBox.nothing(None)
+
+    keep = mixer >> Tx(take)
+    log = iter(station.audio_log)
+    pending = next(log, None)
+    for step in range(station.steps):
+        while pending is not None and pending[0] == step:
+            mixer(pending[1])
+            pending = next(log, None)
+        clock.step()
+    mixer.close()
+    del keep
+
+    def frame(a):
+        return ([np.asarray(b) for b in a.data()],
+                (a.pts().value, a.pts().scale),
+                [(c.id_asset, c.pts.value, c.pts.scale, c.duration.value,
+                  c.duration.scale, c.normalized_pts.value,
+                  c.normalized_pts.scale) for c in a.constituents()])
+
+    got = station.audio_out
+    if len(out) != len(got) or not got:
+        fail(f"audio replay: {len(out)} mixed frames, the station "
+             f"{len(got)}")
+    for k, (a, b) in enumerate(zip(got, out)):
+        (da, pa, ca), (db, pb, cb) = frame(a), frame(b)
+        if pa != pb or ca != cb or len(da) != len(db) or not all(
+                np.array_equal(x, y) for x, y in zip(da, db)):
+            fail(f"audio replay: mixed frame {k} of {len(got)} differs "
+                 f"(pts {pa} / {pb}, constituents {ca} / {cb})")
+    return len(got)
 
 
 def check_station(station, out_fmt, launches, plain_calls, dev):
@@ -2520,10 +2612,18 @@ TICK_STAGES = (
     ("frame.descriptors", "ops.frame", "descriptors"),
     ("frame.pack_params", "ops.frame", "pack_params"),
     ("frame._launch", "ops.frame", "_launch"),
+    ("AudioSampleRateConversion._impl", "mix.src_audio",
+     "AudioSampleRateConversion._impl"),
     ("SoundAnimator._impl", "mix.animator", "SoundAnimator._impl"),
+    ("SoundAnimator.computed_matrix", "mix.animator",
+     "SoundAnimator.computed_matrix"),
     ("AudioMixer._mix", "mix.audio_mixer", "AudioMixer._mix"),
-    ("AudioMixer._run_mix", "mix.audio_mixer", "AudioMixer._run_mix"))
+    ("AudioMixer._run_mix", "mix.audio_mixer", "AudioMixer._run_mix"),
+    ("audio_peak_rms", "ops.audio", "audio_peak_rms"),
+    ("StatsReport.add_sample", "core.stats", "StatsReport.add_sample"),
+    ("StatsReport._bucket_index", "core.stats", "StatsReport._bucket_index"))
 TICK_WARM, TICK_WINDOW = 10, 60
+FANOUT_APPENDS = 2000
 
 
 def stage_keys():
@@ -2531,7 +2631,9 @@ def stage_keys():
     function the imported port has."""
     import importlib
     keys = {}
-    for label, mod, path in TICK_STAGES:
+    for label, mod, path in TICK_STAGES + (
+            ("TimePoint.__post_init__", "core.time",
+             "TimePoint.__post_init__"),):
         obj = importlib.import_module(f"swiftvideo_tpu_torch.{mod}")
         for part in path.split("."):
             obj = getattr(obj, part, None)
@@ -2566,7 +2668,7 @@ def tick_profile(dev, host_sets, ov_host, tone, warm=TICK_WARM,
     from swiftvideo_tpu_torch.media import PixelFormat
     from swiftvideo_tpu_torch.ops import composite, frame
     station = LiveStation(PixelFormat.y420p, host_sets, ov_host, tone,
-                          keep=False)
+                          keep=False, record=True)
 
     def run(n_ticks):
         """(video-tick step ms, other step ms, feed ms) over n_ticks."""
@@ -2603,17 +2705,41 @@ def tick_profile(dev, host_sets, ov_host, tone, warm=TICK_WARM,
         prof_wall = (time.perf_counter() - t1) * 1e3
     launches, plain_calls, ticks = (frame.launches, composite.calls,
                                     station.mixed)
+    # the Composer's fan-out: an audio frame every binding's filter turns
+    # away, against an append to a bus with no observer
+    stray = station.core.EventBox.just(station.audio("nobody", 0))
+    idle_bus = station.core.Bus(station.clock)
+    fanout = {}
+    for name, bus in (("filtered", station.audio_bus), ("bare", idle_bus)):
+        t1 = time.perf_counter()
+        for _ in range(FANOUT_APPENDS):
+            bus.append(stray)
+        fanout[name] = (time.perf_counter() - t1) / FANOUT_APPENDS * 1e6
     station.close()
     err, above = check_station(station, PixelFormat.y420p, launches,
                                plain_calls, dev)
+    replayed = audio_replay(station)
     spans = [(e.name, e.time_range.start, e.time_range.end)
              for e in tprof.events() if e.device_type == DeviceType.CUDA]
     busy = union_ms([(a, b) for _n, a, b in spans])
     h2d = sum(b - a for n, a, b in spans if "HtoD" in n) / 1e3
     kern = sum(b - a for n, a, b in spans if frame.YUV_KERNEL in n) / 1e3
     stats = pstats.Stats(prof).stats
+    keys = stage_keys()
+    tp_key = keys.pop("TimePoint.__post_init__", None)
     stages = {label: stats[key][3] / window * 1e6 if key in stats else 0.0
-              for label, key in stage_keys().items()}
+              for label, key in keys.items()}
+    # the inputs' bus appends by the LiveStation method that made them
+    callers = stats.get(keys.get("Bus.append"), (0, 0, 0, 0, {}))[4]
+    for kind, method in (("audio", LiveStation.feed_audio),
+                         ("picture", LiveStation.feed_pictures)):
+        code = method.__code__
+        got = callers.get((code.co_filename, code.co_firstlineno,
+                           code.co_name))
+        stages[f"Bus.append ({kind} inputs)"] = (
+            got[3] / window * 1e6 if got else 0.0)
+    audio_ticks = stats.get(keys.get("AudioMixer._mix"), (0, 0))[1]
+    timepoints = stats.get(tp_key, (0, 0))[1]
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
     self_us = [(f"{os.path.basename(k[0])}:{k[1]}({k[2]})",
                 v[2] / window * 1e6) for k, v in top]
@@ -2631,6 +2757,11 @@ def tick_profile(dev, host_sets, ov_host, tone, warm=TICK_WARM,
             "kernel_ms_per_tick": kern / window,
             "idle_share": 1.0 - busy / prof_wall,
             "device_activities": len(spans),
+            "audio_ticks": audio_ticks,
+            "timepoints_per_audio_tick": (timepoints / audio_ticks
+                                          if audio_ticks else 0.0),
+            "audio_replayed": replayed,
+            "fanout_us": fanout,
             "stage_us": stages, "self_us": self_us}
 
 
@@ -2650,9 +2781,15 @@ def tick_line(r, smi) -> str:
                 f"{k} {v:.1f}" for k, v in r["stage_us"].items())
             + " | top self us a tick: " + ", ".join(
                 f"{k} {v:.1f}" for k, v in r["self_us"])
-            + f" | launches {r['launches']} for {r['ticks']} ticks, plain "
-            f"composites {r['plain']}, last frame vs plain err {r['err']} "
-            f"above0 {r['above']} | {smi}")
+            + f" | TimePoints built an audio tick "
+            f"{r['timepoints_per_audio_tick']:.1f} (cProfile's count over "
+            f"{r['audio_ticks']} audio ticks) | an audio frame no binding "
+            f"takes: {r['fanout_us']['filtered']:.2f} us an append to the "
+            f"station's audio bus, {r['fanout_us']['bare']:.2f} to a bus with "
+            f"no observer | launches {r['launches']} for "
+            f"{r['ticks']} ticks, plain composites {r['plain']}, last frame "
+            f"vs plain err {r['err']} above0 {r['above']} | mixed audio "
+            f"equal to a plain replay: {r['audio_replayed']} frames | {smi}")
 
 
 def main() -> None:

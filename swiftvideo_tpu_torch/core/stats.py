@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from .clock import Clock, WallClock
-from .time import TimePoint, fseconds, rescale, seconds
+from .time import TimePoint, _wrap64, fseconds, rescale, seconds
 
 
 @dataclass
@@ -77,6 +77,8 @@ class StatsReport:
         self._epoch = clock.current()
         now = clock.current()
         self._period = period
+        # {scale: (period, epoch, their values at that scale)}
+        self._scaled: Dict[int, tuple] = {}
         self._last_computed = now
         self._samples = [_Samples() for _ in range(_NUM_BUCKETS)]
         self._results: Optional[StatsResult] = None
@@ -138,12 +140,19 @@ class StatsReport:
                 bucket.int_samples.setdefault(name, []).append((sample_time, int(val)))
 
     def _bucket_index(self, time: TimePoint) -> int:
-        # stats.swift:162-167
-        duration = rescale(self._period, time.scale)
-        now = time - rescale(self._epoch, time.scale)
-        if duration.value == 0:
+        # stats.swift:162-167, in integers: the period's and the epoch's
+        # values at the sample's scale are kept per scale, and
+        # time - epoch is the TimePoint difference's value
+        kept = self._scaled.get(time.scale)
+        if kept is None or kept[0] is not self._period \
+                or kept[1] is not self._epoch:
+            kept = self._scaled[time.scale] = (
+                self._period, self._epoch,
+                rescale(self._period, time.scale).value,
+                rescale(self._epoch, time.scale).value)
+        if kept[2] == 0:
             return 0
-        return int(now.value // duration.value % _NUM_BUCKETS)
+        return int(_wrap64(time.value - kept[3]) // kept[2] % _NUM_BUCKETS)
 
     # --- reporting (stats.swift:185-228) ---------------------------------
     def report(self) -> Optional[StatsResult]:

@@ -294,6 +294,13 @@ class PictureAnimator(Tx):
             return EventBox.nothing(sample.info())
 
 
+def _sound_matrix(state: ElementState) -> np.ndarray:
+    """T(pos) @ S(gain) of an element state, read-only."""
+    mat = m4.translation3(*state.audio_pos) @ m4.scale3(state.audio_gain)
+    mat.flags.writeable = False
+    return mat
+
+
 class SoundAnimator(Tx):
     """Per-element audio transform stage (animator.soun.swift:21-118)."""
 
@@ -305,6 +312,8 @@ class SoundAnimator(Tx):
         self.current_start_time: Optional[TimePoint] = None
         self.parent = parent
         self._transition_gen = 0
+        # the element matrix while no transition runs, as (state, matrix)
+        self._matrix: Optional[tuple] = None
         super().__init__(self._impl)
 
     def set_parent(self, parent: Optional["SoundAnimator"]) -> None:
@@ -314,6 +323,7 @@ class SoundAnimator(Tx):
         fut: Future = Future()
         self._transition_gen += 1
         gen = self._transition_gen
+        self._matrix = None
         if self.current_state is None or duration.value <= 0:
             self.current_state = state
             # an immediate state change cancels any pending transition
@@ -350,7 +360,9 @@ class SoundAnimator(Tx):
         return fut
 
     def computed_matrix(self) -> np.ndarray:
-        """animator.soun.swift:104-118: T(pos) @ S(gain)."""
+        """animator.soun.swift:104-118: T(pos) @ S(gain).  Read-only; while
+        no transition runs it is kept for the current state (a new state
+        object on every ``set_state`` and at a transition's end)."""
         if self.current_state is None:
             raise AnimatorError("noCurrentState")
         state = self.current_state
@@ -363,8 +375,11 @@ class SoundAnimator(Tx):
             state = state.with_(
                 audio_gain=_lerp(state.audio_gain, self.next_state.audio_gain, pct),
                 audio_pos=_lerp(state.audio_pos, self.next_state.audio_pos, pct))
-        return (m4.translation3(*state.audio_pos)
-                @ m4.scale3(state.audio_gain))
+            return _sound_matrix(state)
+        kept = self._matrix
+        if kept is None or kept[0] is not state:
+            kept = self._matrix = (state, _sound_matrix(state))
+        return kept[1]
 
     def _impl(self, sample: AudioSample) -> EventBox:
         if self.current_state is None or self.current_state.muted:

@@ -39,6 +39,7 @@ import torch
 from ..core import (Clock, ClockTickEvent, EventBox, Source,
                     StatsReport, TimePoint, clamp_time, maximum,
                     rescale)
+from ..core.time import _wrap64
 from ..media.audio import (AudioFormat, AudioSample,
                            bytes_per_sample, number_of_buffers)
 from ..media.coded import MediaConstituent
@@ -109,10 +110,13 @@ class AudioMixer(Source):
         self._mixed_until: Dict[str, int] = {}
         self._gains: Dict[tuple, np.ndarray] = {}
         # each queued sample's placement on the mixer's timeline at the last
-        # tick, by id: (sample, offset, delay, normalized pts, normalized
-        # end).  A sample stays queued for several ticks and its placement
-        # changes only with its asset's offset (a new object on re-anchor)
+        # tick, by id (``_place``).  A sample stays queued for several ticks
+        # and its placement changes only with its asset's offset (a new
+        # object on re-anchor), the delay, or the scales of the tick's window
         self._placed: Dict[int, tuple] = {}
+        # in int16 units a frame, by (sample format, channels)
+        self._in_ipf: Dict[tuple, int] = {}
+        self._consts: Optional[tuple] = None
         self._lock = threading.RLock()
         self._closed = False
 
@@ -180,6 +184,47 @@ class AudioMixer(Source):
             self._gains[key] = g
         return g
 
+    def _tick_constants(self) -> tuple:
+        """(frame duration, sample rate, output format, channels, samples a
+        tick, buffers, int16 units a buffer, int16 units a frame) of the
+        output, worked out again only when one of the four settings
+        changes."""
+        k = self._consts
+        if k is None or k[0] is not self.frame_duration \
+                or k[1] != self.sample_rate or k[2] != self.output_format \
+                or k[3] != self.channel_count:
+            number_samples = rescale(self.frame_duration,
+                                     self.sample_rate).value
+            out_bytes = bytes_per_sample(self.output_format,
+                                         self.channel_count)
+            k = self._consts = (
+                self.frame_duration, self.sample_rate, self.output_format,
+                self.channel_count, number_samples,
+                number_of_buffers(self.output_format, self.channel_count),
+                number_samples * out_bytes // 2, out_bytes // 2)
+        return k
+
+    def _place(self, work: AudioSample, offset: TimePoint, ts_scale: int,
+               end_scale: int) -> tuple:
+        """A queued sample's placement: (sample, offset, delay,
+        ``ts_scale``, ``end_scale``, normalized pts, normalized end, and
+        three values: the end and the pts rescaled to ``ts_scale``, the pts
+        rescaled to ``end_scale``).  The three are what the TimePoint
+        comparisons and differences against the tick's start (at
+        ``ts_scale``) and the window's end (at ``end_scale``) compute
+        first, by the same ``rescale``."""
+        work_duration = rescale(
+            TimePoint(work.number_samples(), work.sample_rate()),
+            work.pts().scale)
+        normalized_pts = work.pts() + offset + self.delay
+        normalized_end = normalized_pts + rescale(work_duration,
+                                                  normalized_pts.scale)
+        return (work, offset, self.delay, ts_scale, end_scale,
+                normalized_pts, normalized_end,
+                rescale(normalized_end, ts_scale).value,
+                rescale(normalized_pts, ts_scale).value,
+                rescale(normalized_pts, end_scale).value)
+
     # --- mix execution ----------------------------------------------------
     def _run_mix(self, contribs, backing: np.ndarray) -> None:
         """Fold ``contribs`` into ``backing`` in order.  Device path, on
@@ -238,13 +283,16 @@ class AudioMixer(Source):
         self.stats.start_timer("mix.audio.mix")
 
         mix_end = mix_ts + self.frame_duration
-        number_samples = rescale(self.frame_duration, self.sample_rate).value
-        num_buffers = number_of_buffers(self.output_format, self.channel_count)
-        samples_per_buffer = number_samples * \
-            bytes_per_sample(self.output_format, self.channel_count) // 2
+        (_d, sample_rate, _f, _c, number_samples, num_buffers,
+         samples_per_buffer, out_ipf) = self._tick_constants()
         buffers = [np.zeros(samples_per_buffer, np.int16)
                    for _ in range(num_buffers)]
         constituents: List[MediaConstituent] = []
+        # the window test in integers: each queued sample's end and pts
+        # rescaled to the scales of mix_ts and mix_end (``_place``)
+        ts_scale, ts_value = mix_ts.scale, mix_ts.value
+        end_scale, end_value = mix_end.scale, mix_end.value
+        mix_frames = rescale(mix_ts, sample_rate).value
 
         with self._lock:
             assets = {k: list(v) for k, v in self._samples.items() if v}
@@ -269,40 +317,37 @@ class AudioMixer(Source):
                 continue
             if not queued:
                 continue
-            covered = (mix_ts + self.frame_duration, mix_ts)
+            covered = (mix_end, mix_ts)
             unused: List[AudioSample] = []
             hw = (self._mixed_until.get(asset_id)
                   if self.dedup_overlap else None)
             for work in queued:
                 place = self._placed.get(id(work))
                 if place is None or place[0] is not work \
-                        or place[1] is not offset or place[2] is not self.delay:
-                    work_duration = rescale(
-                        TimePoint(work.number_samples(), work.sample_rate()),
-                        work.pts().scale)
-                    normalized_pts = work.pts() + offset + self.delay
-                    place = (work, offset, self.delay, normalized_pts,
-                             normalized_pts + rescale(work_duration,
-                                                      normalized_pts.scale))
+                        or place[1] is not offset \
+                        or place[2] is not self.delay \
+                        or place[3] != ts_scale or place[4] != end_scale:
+                    place = self._place(work, offset, ts_scale, end_scale)
                 placed[id(work)] = place
-                normalized_pts, normalized_end = place[3], place[4]
-                if normalized_end >= mix_ts and normalized_pts < mix_end:
-                    gains = self.gains(work.transform)
-                    pts_delta = normalized_pts - mix_ts
-                    offset_samples = rescale(pts_delta, self.sample_rate).value
-                    in_ipf = bytes_per_sample(work.format,
-                                              work.number_channels()) // 2
-                    out_ipf = bytes_per_sample(self.output_format,
-                                               self.channel_count) // 2
+                # normalized_end >= mix_ts and normalized_pts < mix_end
+                if place[7] >= ts_value and place[9] < end_value:
+                    # pts_delta = normalized_pts - mix_ts, at ts_scale
+                    delta = _wrap64(place[8] - ts_value)
+                    offset_samples = (
+                        delta if ts_scale == sample_rate else
+                        rescale(TimePoint(delta, ts_scale), sample_rate).value)
+                    fmt = (work.format, work.number_channels())
+                    in_ipf = self._in_ipf.get(fmt)
+                    if in_ipf is None:
+                        in_ipf = self._in_ipf[fmt] = \
+                            bytes_per_sample(*fmt) // 2
                     # reference reinterprets a negative delta in source-rate
                     # units (mix.audio.swift:157-160)
-                    in_off_units = (abs(pts_delta.value) * in_ipf
-                                    if pts_delta.value < 0 else 0)
+                    in_off_units = abs(delta) * in_ipf if delta < 0 else 0
                     back_off_units = max(offset_samples * out_ipf, 0)
                     if self.dedup_overlap:
                         # span dedup (beyond the reference): clip to the
                         # frames past this asset's already-written mark
-                        mix_frames = rescale(mix_ts, self.sample_rate).value
                         start_f = mix_frames + back_off_units // out_ipf
                         if hw is not None and hw > start_f:
                             skip = hw - start_f
@@ -325,16 +370,17 @@ class AudioMixer(Source):
                                 unused.append(work)
                             continue
                         hw = max(hw or 0, start_f + n_f)
+                    gains = self.gains(work.transform)
                     for idx, data in enumerate(work.data()):
                         if idx >= len(buffers):
                             break
                         contributions[idx].append(
                             (np.asarray(data).view(np.int16), gains,
                              int(back_off_units), int(in_off_units)))
-                    covered = (clamp_time(normalized_pts, mix_ts, covered[0]),
-                               clamp_time(covered[1], normalized_end, mix_end))
+                    covered = (clamp_time(place[5], mix_ts, covered[0]),
+                               clamp_time(covered[1], place[6], mix_end))
                     unused.append(work)
-                elif normalized_end > mix_ts:
+                elif place[7] > ts_value:   # normalized_end > mix_ts
                     unused.append(work)
                 # else: discard past sample
             if covered[1] > covered[0]:

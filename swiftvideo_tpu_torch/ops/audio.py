@@ -166,6 +166,18 @@ def audio_peak_rms(buffers: Sequence[np.ndarray], fmt: str,
     rms = np.zeros(channels, np.float32)
     planar = fmt.endswith("p")
     scale = 32768.0 if fmt.startswith("s16") else 1.0
+    whole = np.asarray(buffers[0]) if len(buffers) and not planar else None
+    if whole is not None and whole.size and channels \
+            and whole.size % channels == 0:
+        # one cast of the interleaved buffer into a row a channel: each
+        # row is the channel's strided slice below, reduced along a
+        # contiguous row as that slice is, so both are bit-equal
+        data = whole.reshape(-1, channels).T.astype(np.float32, order="C")
+        data /= scale
+        peaks[:] = np.abs(data).max(axis=1)
+        data *= data
+        rms[:] = np.sqrt(data.mean(axis=1))
+        return peaks, rms
     for ch in range(channels):
         if planar:
             data = np.asarray(buffers[ch]).astype(np.float32) / scale

@@ -81,7 +81,16 @@ def test_step_clock_runs_events_in_time_order():
         # a callback may schedule more work; it runs at its own time
         clock.schedule(TP(10, 1000), lambda ev: at(25, "nested"))
         steps = [_tp(clock.step()) for _ in range(3)]
-        return seen, steps, clock.pending_count()
+        # test_clock.py's deadline-order case: two callbacks due in one
+        # step run in deadline order, not in the order they were scheduled
+        order = []
+        clock.schedule(clock.current() + TP(7, 1000),
+                       lambda ev: order.append(("late", _tp(ev.time()))))
+        clock.schedule(clock.current() + TP(3, 1000),
+                       lambda ev: order.append(("early", _tp(ev.time()))))
+        clock.step()
+        assert [n for n, _ in order] == ["early", "late"]
+        return seen, steps, order, clock.pending_count()
     assert run(PACKAGES["jax"]) == run(PACKAGES["port"])
 
 

@@ -8,9 +8,11 @@ For one ROOT it imports ``swiftvideo_tpu_torch`` from the checkout there
 frame kernels and runs ``chip_smoke.py``'s phase 25 on it
 (``tick_profile``: the live station's y420p tick through the checkout's
 Composer, seed 0): host ms per video tick (p50 and p99 of the steps that
-mix a frame, and all host work a tick), host microseconds a tick of each
-stage (cProfile), device busy ms a tick and the device's idle share
-(torch.profiler), with the launch, plain-call and 0 LSB checks of phase 4.
+mix a frame, all host work a tick, and the audio-only steps'), host
+microseconds a tick of each stage (cProfile), the TimePoints built an audio
+tick (cProfile's count), device busy ms a tick and the device's idle share
+(torch.profiler), with the launch, plain-call and 0 LSB checks of phase 4
+and the mixed audio held equal to a plain replay.
 Then it times four routes of the tick's uploads, 4 cameras of 1080p y420p
 planes from numpy, alternating two frames, 60 ticks each with no sync
 between them: the checkout's ``barriers.upload``, a page-locked copy per
@@ -154,7 +156,11 @@ def main() -> None:
         t, u = r["tick"], r["upload_routes"]
         print(f"{r['root']}: step p50 {t['tick_p50_ms']:.4f} p99 "
               f"{t['tick_p99_ms']:.4f} ms, host {t['host_ms_per_tick']:.4f} "
-              f"ms a tick, busy {t['busy_ms_per_tick']:.4f} ms, idle "
+              f"ms a tick, audio-only steps "
+              f"{t['audio_step_ms_per_tick']:.4f} ms a tick, AudioMixer._mix "
+              f"{t['stage_us']['AudioMixer._mix']:.1f} us a tick (cProfile), "
+              f"TimePoints {t['timepoints_per_audio_tick']:.1f} an audio "
+              f"tick, busy {t['busy_ms_per_tick']:.4f} ms, idle "
               f"{t['idle_share']:.1%}; uploads (host p50 / wall ms a tick) "
               + ", ".join(f"{k} {v['host_ms_p50']:.4f} / {v['wall_ms']:.4f}"
                           for k, v in u.items()) + f" | {r['card']}")
