@@ -35,6 +35,7 @@ import uuid
 import weakref
 from typing import Any, Callable, Generic, List, Optional, Tuple, TypeVar
 
+from . import spans
 from .clock import Clock, WallClock
 from .event import Event, EventBox, EventInfo, ResultEvent
 from .time import TimePoint, rescale
@@ -324,6 +325,7 @@ class Bus(Generic[T]):
     def append(self, box: EventBox[T]) -> EventBox[ResultEvent]:
         """Enqueue an event box; dispatch if granularity window has elapsed
         (bus.swift:81-109)."""
+        span = spans.ON and spans.begin("bus.append")
         fire = False
         flush_at = None
         with self._lock:
@@ -349,7 +351,10 @@ class Bus(Generic[T]):
             info = sample.info() if isinstance(sample, Event) else None
             return EventBox.nothing(info)
 
-        return box.flat_map(digest)
+        result = box.flat_map(digest)
+        if span:
+            spans.end(span)
+        return result
 
     def _flush_window(self, _evt) -> None:
         """Clock-scheduled tail flush for granularity batching (see

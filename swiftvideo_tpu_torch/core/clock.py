@@ -23,6 +23,7 @@ import uuid
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Protocol, Tuple
 
+from . import spans
 from .time import TimePoint, from_seconds, seconds
 
 
@@ -120,11 +121,14 @@ class WallClock:
                 if self._stopped:
                     return
                 _, _, at, fn = heapq.heappop(self._heap)
+            span = spans.ON and spans.begin("clock.step")
             try:
                 fn(ClockTickEvent(at, self._asset_id, self._workspace_id))
             except Exception:  # pragma: no cover - callback errors must not kill the clock
                 import traceback
                 traceback.print_exc()
+            if span:
+                spans.end_step(span)
 
 
 class StepClock:
@@ -148,9 +152,13 @@ class StepClock:
         self._lock = threading.RLock()
 
     def step(self) -> TimePoint:
+        span = spans.ON and spans.begin("clock.step")
         with self._lock:
             self._time = self._time + self._step_size
-        return self._run_events()
+        cur = self._run_events()
+        if span:
+            spans.end_step(span)
+        return cur
 
     def current(self) -> TimePoint:
         return self._time

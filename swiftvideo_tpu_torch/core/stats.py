@@ -23,6 +23,7 @@ import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+from . import spans
 from .clock import Clock, WallClock
 from .time import TimePoint, _wrap64, fseconds, rescale, seconds
 
@@ -115,19 +116,26 @@ class StatsReport:
 
     # --- timers (stats.swift:110-128) -----------------------------------
     def start_timer(self, name: str) -> None:
+        span = spans.ON and spans.begin("stats.timer")
         now = self._clock.current()
         with self._lock:
             self._inflight[name] = now
+        if span:
+            spans.end(span)
 
     def end_timer(self, name: str) -> None:
+        span = spans.ON and spans.begin("stats.timer")
         end = self._clock.current()
         with self._lock:
             start = self._inflight.pop(name, None)
         if start is not None:
             self.add_sample(name, end - start)
+        if span:
+            spans.end(span)
 
     # --- samples ---------------------------------------------------------
     def add_sample(self, name: str, val) -> None:
+        span = spans.ON and spans.begin("stats.timer")
         sample_time = self._clock.current()
         idx = self._bucket_index(sample_time)
         with self._lock:
@@ -138,6 +146,8 @@ class StatsReport:
                 bucket.double_samples.setdefault(name, []).append((sample_time, val))
             else:
                 bucket.int_samples.setdefault(name, []).append((sample_time, int(val)))
+        if span:
+            spans.end(span)
 
     def _bucket_index(self, time: TimePoint) -> int:
         # stats.swift:162-167, in integers: the period's and the epoch's
@@ -165,6 +175,7 @@ class StatsReport:
         return self._id_asset
 
     def _recompute(self, now: TimePoint) -> None:
+        span = spans.ON and spans.begin("stats.recompute")
         try:
             duration = self._period
             idx = (_NUM_BUCKETS + self._bucket_index(now) - 2) % _NUM_BUCKETS
@@ -188,6 +199,8 @@ class StatsReport:
             self._last_computed = now
             if not self._closed:
                 self._schedule_tick(now + self._period)
+            if span:
+                spans.end(span)
 
     # window filter shared by all three compute variants (stats.swift:235-241)
     @staticmethod

@@ -23,7 +23,7 @@ import numpy as np
 
 from ..scene import (AspectMode, ElementState, PicOrigin,
                      PictureAnchor)
-from ..core import Clock, EventBox, TimePoint, Tx, rescale, seconds
+from ..core import Clock, EventBox, TimePoint, Tx, rescale, seconds, spans
 from ..media.audio import AudioSample
 from ..media.picture import PictureSample
 from ..utils import matrix as m4
@@ -273,25 +273,32 @@ class PictureAnimator(Tx):
             self.initial_parent_state, self.z_index)
 
     def _impl(self, sample: PictureSample) -> EventBox:
+        span = spans.ON and spans.begin("stage.picture_animator")
         if self.current_state is None or self.current_state.hidden:
-            return EventBox.nothing(sample.info())
-        try:
-            parent_state = (self.parent.computed_state(sample)
-                            if self.parent is not None else None)
-            computed = self.computed_state(sample, parent_state)
-            opacity = parent_state.opacity if parent_state is not None else 1.0
-            if parent_state is not None and self.initial_parent_state is None:
-                self.initial_parent_state = parent_state
-            proj = m4.ortho(*self.canvas_size)
-            return EventBox.just(sample.with_(
-                matrix=proj @ computed.matrix,
-                texture_matrix=computed.texture_matrix,
-                border_matrix=proj @ computed.border_matrix,
-                fill_color=computed.fill_color,
-                opacity=computed.opacity * opacity,
-                revision=self.revision_id))
-        except AnimatorError:
-            return EventBox.nothing(sample.info())
+            out = EventBox.nothing(sample.info())
+        else:
+            try:
+                parent_state = (self.parent.computed_state(sample)
+                                if self.parent is not None else None)
+                computed = self.computed_state(sample, parent_state)
+                opacity = (parent_state.opacity if parent_state is not None
+                           else 1.0)
+                if parent_state is not None and \
+                        self.initial_parent_state is None:
+                    self.initial_parent_state = parent_state
+                proj = m4.ortho(*self.canvas_size)
+                out = EventBox.just(sample.with_(
+                    matrix=proj @ computed.matrix,
+                    texture_matrix=computed.texture_matrix,
+                    border_matrix=proj @ computed.border_matrix,
+                    fill_color=computed.fill_color,
+                    opacity=computed.opacity * opacity,
+                    revision=self.revision_id))
+            except AnimatorError:
+                out = EventBox.nothing(sample.info())
+        if span:
+            spans.end(span)
+        return out
 
 
 def _sound_matrix(state: ElementState) -> np.ndarray:
@@ -382,15 +389,21 @@ class SoundAnimator(Tx):
         return kept[1]
 
     def _impl(self, sample: AudioSample) -> EventBox:
+        span = spans.ON and spans.begin("stage.sound_animator")
         if self.current_state is None or self.current_state.muted:
-            return EventBox.nothing(sample.info())
-        try:
-            # chain order (animator.soun.swift:77-90): element transform
-            # first, then parent, then the sample's own transform
-            mat = self.computed_matrix()
-            if self.parent is not None:
-                mat = self.parent.computed_matrix() @ mat
-            transform = sample.transform @ mat
-            return EventBox.just(sample.with_(transform=transform))
-        except AnimatorError:
-            return EventBox.just(sample)
+            out = EventBox.nothing(sample.info())
+        else:
+            try:
+                # chain order (animator.soun.swift:77-90): element
+                # transform first, then parent, then the sample's own
+                # transform
+                mat = self.computed_matrix()
+                if self.parent is not None:
+                    mat = self.parent.computed_matrix() @ mat
+                transform = sample.transform @ mat
+                out = EventBox.just(sample.with_(transform=transform))
+            except AnimatorError:
+                out = EventBox.just(sample)
+        if span:
+            spans.end(span)
+        return out

@@ -38,7 +38,7 @@ import torch
 
 from ..core import (Clock, ClockTickEvent, EventBox, Source,
                     StatsReport, TimePoint, clamp_time, maximum,
-                    rescale)
+                    rescale, spans)
 from ..core.time import _wrap64
 from ..media.audio import (AudioFormat, AudioSample,
                            bytes_per_sample, number_of_buffers)
@@ -275,6 +275,7 @@ class AudioMixer(Source):
     def _mix(self, at: ClockTickEvent) -> None:
         if self._closed:
             return
+        span = spans.ON and spans.begin("audio_mixer.tick")
         mix_ts = at.time() - self.epoch
         self.pts = mix_ts
         self.clock.schedule(at.time() + self.frame_duration, self._mix)
@@ -399,8 +400,11 @@ class AudioMixer(Source):
                 new_marks[asset_id] = hw
             result[asset_id] = unused
         self._placed = placed
+        part = span and spans.begin("audio_mixer.fold")
         for idx, contribs in enumerate(contributions):
             self._run_mix(contribs, buffers[idx])
+        if span:
+            spans.end(part)
         with self._lock:
             for asset_id, unused in result.items():
                 if asset_id not in self._samples:
@@ -422,4 +426,8 @@ class AudioMixer(Source):
             pts_value=mix_ts - self.delay, id_asset=self.id_asset,
             id_workspace=self.id_workspace,
             constituents_value=tuple(constituents), event_info=self.stats)
+        part = span and spans.begin("audio_mixer.emit")
         self.emit(out)
+        if span:
+            spans.end(part)
+            spans.end(span)

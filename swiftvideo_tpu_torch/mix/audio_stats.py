@@ -7,13 +7,14 @@ for s16/f32, planar or interleaved.  Vectorized via ops.audio.
 
 from __future__ import annotations
 
-from ..core import EventBox, Tx
+from ..core import EventBox, Tx, spans
 from ..media.audio import AudioSample
 from ..ops.audio import audio_peak_rms
 
 
 def audio_stats() -> Tx:
     def impl(sample: AudioSample) -> EventBox:
+        span = spans.ON and spans.begin("stats.audio")
         info = sample.info()
         if info is not None and sample.format.startswith(("s16", "f32")):
             peaks, rms = audio_peak_rms(sample.data(), sample.format,
@@ -21,6 +22,8 @@ def audio_stats() -> Tx:
             for idx in range(sample.number_channels()):
                 info.add_sample(f"audio.peak.{idx}", float(peaks[idx]))
                 info.add_sample(f"audio.rms.{idx}", float(rms[idx]))
+        if span:
+            spans.end(span)
         return EventBox.just(sample)
 
     return Tx(impl)

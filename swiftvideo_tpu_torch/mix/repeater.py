@@ -16,7 +16,7 @@ repeater, scaling with source count in a composer wall.)
 from __future__ import annotations
 
 import threading
-from ..core import AsyncTx, Clock, EventBox, TimePoint, rescale
+from ..core import AsyncTx, Clock, EventBox, TimePoint, rescale, spans
 
 
 class Repeater(AsyncTx):
@@ -30,6 +30,7 @@ class Repeater(AsyncTx):
         self._lock = threading.RLock()
 
         def digest(sample) -> EventBox:
+            span = spans.ON and spans.begin("stage.repeater")
             now = self._clock.current()
             with self._lock:
                 self._sample = sample
@@ -38,6 +39,8 @@ class Repeater(AsyncTx):
                 self._armed = True
             if arm:
                 self._run()
+            if span:
+                spans.end(span)
             return EventBox.just(sample)
 
         self.set(digest)
@@ -47,15 +50,20 @@ class Repeater(AsyncTx):
         self._clock.schedule(now + self._interval, self._tick)
 
     def _tick(self, evt) -> None:
+        span = spans.ON and spans.begin("stage.repeater")
         with self._lock:
             sample = self._sample
             if sample is None:        # dormant (gone downstream)
                 self._armed = False
-                return
-            next_due = self._last_emit + self._interval
-            due = next_due <= evt.time()
-            if due:
-                self._last_emit = evt.time()
+            else:
+                next_due = self._last_emit + self._interval
+                due = next_due <= evt.time()
+                if due:
+                    self._last_emit = evt.time()
+        if span:
+            spans.end(span)
+        if sample is None:
+            return
         if due:
             result = self.emit(sample)
             if result.is_gone():

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from ..core import EventBox, TimePoint, Tx, rescale
+from ..core import EventBox, TimePoint, Tx, rescale, spans
 from ..media.audio import AudioSample
 from ..ops.registry import make_compute_context
 from ..ops.resample import (PolyphaseResampler, from_planar_f32, map_channels,
@@ -71,6 +71,7 @@ class AudioSampleRateConversion(Tx):
             transform=last.transform, event_info=last.info())]
 
     def _impl(self, sample: AudioSample) -> EventBox:
+        span = spans.ON and spans.begin("stage.src")
         if (self.out_frequency == sample.sample_rate()
                 and self.out_channels == sample.number_channels()
                 and self.out_format == sample.format):
@@ -82,7 +83,14 @@ class AudioSampleRateConversion(Tx):
             self._resampler = None
             self._last = None
             self._pts = None
-            return EventBox.just(sample)
+            out = EventBox.just(sample)
+        else:
+            out = self._convert(sample)
+        if span:
+            spans.end(span)
+        return out
+
+    def _convert(self, sample: AudioSample) -> EventBox:
         self._last = sample
         if self._pts is None:
             self._pts = rescale(sample.pts(), self.out_frequency)

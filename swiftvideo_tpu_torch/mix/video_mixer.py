@@ -26,7 +26,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core import (Clock, ClockTickEvent, EventBox, Source,
-                    StatsReport, TimePoint, rescale)
+                    StatsReport, TimePoint, rescale, spans)
 from ..media.picture import BufferType, ImageBuffer, PictureSample
 from ..media.pixel import PixelFormat, planes_for_format
 
@@ -106,11 +106,15 @@ class VideoMixer(Source):
         key = (_value_key(img.matrix()), _value_key(img.texture_matrix()),
                _value_key(img.border_matrix()), fill.tobytes(),
                tuple(img.size()), self.output_size, float(img.opacity()))
+        if spans.ON:
+            spans.count("video_mixer.uniform_lookups")
         try:
             self._uniforms.move_to_end(key)
             return self._uniforms[key]
         except KeyError:
             pass
+        if spans.ON:
+            spans.count("video_mixer.uniform_misses")
         try:
             u = ImageUniforms(
                 transform_inv=np.linalg.inv(
@@ -133,6 +137,7 @@ class VideoMixer(Source):
     def _mix(self, at: ClockTickEvent) -> None:
         if self._closed:
             return
+        span = spans.ON and spans.begin("video_mixer.tick")
         pts = at.time() - self.epoch
         self.clock.schedule(at.time() + self.frame_duration, self._mix)
         self.stats.end_timer("mix.video.delta")
@@ -145,6 +150,7 @@ class VideoMixer(Source):
             self._samples[0] = {}
         images = sorted(merged.values(), key=lambda s: s.z_index())
         try:
+            part = span and spans.begin("video_mixer.uniforms")
             sources = []
             for img in images:
                 uni = self.uniforms(img)
@@ -154,6 +160,8 @@ class VideoMixer(Source):
                     continue
                 sources.append((to_device(img.planes(), self.ctx.device),
                                 img.pixel_format(), uni))
+            if span:
+                spans.end(part)
             planes = composite_frame(self.ctx, self.output_format,
                                      self.output_size, sources)
             self.stats.end_timer("mix.video.compose")
@@ -169,8 +177,13 @@ class VideoMixer(Source):
                 img, self.id_asset, self.id_workspace,
                 time_point=at.time(), pts_value=pts,
                 event_info=self.stats)
+            part = span and spans.begin("video_mixer.emit")
             self.emit(sample)
+            if span:
+                spans.end(part)
         except Exception:  # mix errors must not kill the clock loop
             self.stats.end_timer("mix.video.compose")
             import traceback
             traceback.print_exc()
+        if span:
+            spans.end(span)

@@ -17,25 +17,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import EventBox, Tx
+from ..core import EventBox, Tx, spans
 from ..media.audio import AudioSample
 from ..media.picture import BufferType, PictureSample
 
 from .registry import ComputeContext
 
 
+def _host_tensor(array) -> torch.Tensor:
+    if isinstance(array, torch.Tensor):
+        return array
+    a = np.ascontiguousarray(array)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 def upload(array, device: torch.device) -> torch.Tensor:
     """One host buffer (numpy or cpu tensor) as a tensor on ``device``."""
-    if isinstance(array, torch.Tensor):
-        if array.device == device:
-            return array
-        t = array
-    else:
-        a = np.ascontiguousarray(array)
-        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    if isinstance(array, torch.Tensor) and array.device == device:
+        return array
     if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+        return _host_tensor(array)
+    span = spans.ON and spans.begin("barriers.upload")
+    part = span and spans.begin("barriers.pin")
+    t = _host_tensor(array).pin_memory()
+    if span:
+        spans.end(part)
+        spans.count("barriers.uploads")
+        spans.count("barriers.upload_bytes", t.nbytes)
+        part = spans.begin("barriers.h2d")
+    t = t.to(device, non_blocking=True)
+    if span:
+        spans.end(part)
+        spans.end(span)
+    return t
 
 
 def download(t) -> np.ndarray:

@@ -49,6 +49,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import spans
 from ..media.pixel import PixelFormat, num_planes, plane_array_shape
 
 from . import nvcc
@@ -422,7 +423,10 @@ def cell_params(cell_size: Tuple[int, int], grid: Tuple[int, int], planes,
 def _launch(lib, params: np.ndarray, index: int, stream: int,
             kernel: str) -> None:
     global launches
+    span = spans.ON and spans.begin("frame.launch")
     err = lib.sv_frame_composite(params.ctypes.data, index, stream)
+    if span:
+        spans.end(span)
     if err != 0:
         raise RuntimeError(f"frame_composite launch failed: CUDA error {err}")
     launches += 1
@@ -503,6 +507,7 @@ def composite_cells_cuda(cell_size: Tuple[int, int], planes,
     a table kept per layout (``cell_params``); CPU tensors take the plain
     per-cell fold (``composite_cells_torch``).  Only y420p canvases are
     written: another ``out_fmt`` raises."""
+    span = spans.ON and spans.begin("frame.cells")
     if out_fmt != PixelFormat.y420p:
         raise ValueError(f"a cell grid needs a y420p target, not {out_fmt}")
     w, h = int(cell_size[0]), int(cell_size[1])
@@ -519,9 +524,12 @@ def composite_cells_cuda(cell_size: Tuple[int, int], planes,
                          f"{n} frames")
     if dev.type == "cpu":
         frames = zip(*(p.unbind(0) for p in planes))
-        return composite_cells_torch(
+        outs = composite_cells_torch(
             (w, h), [(list(f), fmt, u) for f, u in zip(frames, uniforms)], dev,
             grid=(cols, rows))
+        if span:
+            spans.end(span)
+        return outs
     if dev.type != "cuda":
         raise ValueError(f"frame kernel runs on cuda, not {dev}")
     outs = [torch.empty((rows * r, cols * c), dtype=torch.uint8, device=dev)
@@ -532,4 +540,6 @@ def composite_cells_cuda(cell_size: Tuple[int, int], planes,
     for params in cell_params((w, h), (cols, rows), planes, fmt, uniforms,
                               outs):
         _launch(lib, params, index, stream, YUV_KERNEL)
+    if span:
+        spans.end(span)
     return outs

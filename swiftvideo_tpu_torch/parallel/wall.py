@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import spans
 from ..media.pixel import PixelFormat
 from ..ops import frame
 from ..ops.composite import packed
@@ -224,6 +225,7 @@ class MixingWall:
         (one card) or this rank's band (aligned ranks); on the CPU default
         cells take the products of ops/matscale.py, per-cell uniforms the
         plain per-cell fold, and the tiles are assembled."""
+        span = spans.ON and spans.begin("wall.step")
         if gains is None:
             gains = self._gains
         if uniforms is None:
@@ -239,4 +241,9 @@ class MixingWall:
             video = self._assemble(scale_y420p_batch(ys, us, vs, self._plan))
         else:
             video = self._assemble(self._scale_cells(ys, us, vs, uniforms))
-        return video + (self._mix_audio(audio, gains),)
+        part = span and spans.begin("wall.audio")
+        mixed = self._mix_audio(audio, gains)
+        if span:
+            spans.end(part)
+            spans.end(span)
+        return video + (mixed,)

@@ -1,0 +1,391 @@
+"""The port's span and counter recorder (``core/spans.py``): off it records
+nothing; on, spans nest with their parents and self time on each thread's
+own stack, counters count, a tiny Composer gives the same frames and audio
+either way and reaches every stage the CPU path has, and the benchmark's
+readers of the records do their arithmetic right."""
+
+import itertools
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from swiftvideo_tpu_torch.core import (Bus, EventBox, StepClock, TimePoint,
+                                       Tx, WallClock, spans)
+from swiftvideo_tpu_torch.parallel.wall import MixingWall
+
+from svbench import cells
+from svbench.drivers import live
+
+SEED = 2**31 + 5
+
+
+@pytest.fixture(autouse=True)
+def recorder_off():
+    """Every test starts and ends with the recorder off."""
+    spans.stop()
+    yield
+    spans.stop()
+
+
+@pytest.fixture
+def ticks(monkeypatch):
+    """A clock that reads 0, 10, 20, ... ns, one step a reading."""
+    counter = itertools.count(0, 10)
+    monkeypatch.setattr(spans, "perf_counter_ns", lambda: next(counter))
+
+
+def _graph(steps=3):
+    """A clock, a bus fed before every step and an observer on it."""
+    clock = StepClock(TimePoint(1, 100))
+    bus = Bus(clock)
+    seen = []
+    keep = bus.subscribe(Tx(lambda v: (seen.append(v), EventBox.just(v))[1]))
+    for k in range(steps):
+        bus.append(EventBox.just(k))
+        clock.step()
+    return seen, keep
+
+
+def test_off_records_nothing(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a site reached the recorder while it was off")
+
+    monkeypatch.setattr(spans, "begin", refuse)
+    monkeypatch.setattr(spans, "count", refuse)
+    seen, _keep = _graph()
+    assert seen == [0, 1, 2] and not spans.ON
+    rec = spans.stop()
+    assert len(rec) == 0 and rec.counters == {}
+
+
+def test_nesting_parents_and_self_time(ticks):
+    spans.start()
+    a = spans.begin("outer")          # 0
+    b = spans.begin("inner")          # 10
+    spans.end(b)                      # 20
+    c = spans.begin("inner")          # 30
+    d = spans.begin("outer")          # 40: an outer inside an inner
+    spans.end(d)                      # 50
+    spans.end(c)                      # 60
+    spans.end(a)                      # 70
+    rec = spans.stop()
+    names = [rec.names[k] for k in rec.name]
+    assert names == ["outer", "inner", "inner", "outer"]
+    assert rec.parent.tolist() == [-1, 0, 0, 2]
+    assert (rec.end - rec.start).tolist() == [70, 10, 30, 10]
+    # the nested outer is counted once in the total, and once in self time
+    assert rec.total_ns("outer") == 70
+    assert rec.total_ns("inner") == 40
+    assert rec.total_ns("outer", inside="inner") == 0
+    assert rec.total_ns("inner", inside="outer") == 40
+    assert rec.self_ns("outer") == 70 - 40 + 10
+    assert rec.self_ns("inner") == 40 - 10
+    assert rec.self_ns("outer", "inner") == 70
+    assert rec.count("inner") == 2 and rec.count("absent") == 0
+    win = rec.window(10, 60)
+    assert [win.names[k] for k in win.name] == ["inner", "inner", "outer"]
+    assert win.parent.tolist() == [-1, -1, 1]
+    assert win.timeline() == [(10, 20, "inner"), (30, 60, "inner"),
+                              (40, 50, "outer")]
+
+
+def test_a_span_left_open_hands_its_children_on(ticks):
+    spans.start()
+    a = spans.begin("outer")
+    spans.begin("abandoned")          # an exception skipped its end
+    b = spans.begin("inner")
+    spans.end(b)
+    spans.end(a)
+    c = spans.begin("after")
+    spans.end(c)
+    rec = spans.stop()
+    assert [rec.names[k] for k in rec.name] == ["outer", "inner", "after"]
+    assert rec.parent.tolist() == [-1, 0, -1]
+
+
+def test_step_ids_join_publishing_to_its_step():
+    spans.start()
+    _graph(steps=3)
+    rec = spans.stop()
+    names = [rec.names[k] for k in rec.name]
+    # each step: the publishing's append, then the clock step
+    assert names == ["bus.append", "clock.step"] * 3
+    assert rec.step.tolist() == [0, 0, 1, 1, 2, 2]
+
+
+def test_stacks_are_per_thread():
+    clock = WallClock()
+    done = threading.Event()
+    bus = Bus(StepClock(TimePoint(1, 100)))
+    keep = bus.subscribe(Tx(lambda v: EventBox.just(v)))
+
+    def on_tick(_evt):
+        bus.append(EventBox.just(1))
+
+    spans.start()
+    outer = spans.begin("main.outer")
+    clock.schedule(clock.current(), on_tick)
+    # runs after the first callback's step has ended
+    clock.schedule(clock.current(), lambda _evt: done.set())
+    assert done.wait(10)
+    spans.end(outer)
+    clock.close()
+    rec = spans.stop()
+    del keep
+    names = [rec.names[k] for k in rec.name]
+    main = rec.thread[names.index("main.outer")]
+    step = names.index("clock.step")
+    append = names.index("bus.append")
+    assert rec.thread[step] == rec.thread[append] != main
+    assert rec.parent[step] == -1 and rec.parent[append] == step
+
+
+def test_threads_lose_no_span_step_or_count():
+    """Eight threads, each opening spans, counting and ending clock steps,
+    with the interpreter switching threads as often as it can."""
+    threads, rounds = 8, 300
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        spans.start()
+
+        def work():
+            for _ in range(rounds):
+                outer = spans.begin("clock.step")
+                spans.end(spans.begin("bus.append"))
+                spans.count("n")
+                spans.end_step(outer)
+
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(60)
+        assert not any(t.is_alive() for t in pool)
+        last = spans.begin("last")
+        spans.end(last)
+        rec = spans.stop()
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(rec) == 2 * threads * rounds + 1
+    assert rec.counters == {"n": threads * rounds}
+    assert rec.step[-1] == threads * rounds
+    assert len(set(rec.thread.tolist())) == threads + 1
+    inner = rec.parent[rec.name == rec.names.index("bus.append")]
+    assert (rec.name[inner] == rec.names.index("clock.step")).all()
+
+
+def test_counters_count_only_while_on():
+    spans.count("x", 5)
+    spans.start()
+    spans.count("x", 2)
+    spans.count("x")
+    rec = spans.stop()
+    spans.count("x", 7)
+    assert rec.counters == {"x": 3}
+    assert spans.stop().counters == {}
+
+
+@pytest.fixture
+def one_thread():
+    threads = torch.get_num_threads()
+    yield
+    torch.set_num_threads(threads)
+
+
+def _tiny_station(traced: bool, steps: int):
+    """The benchmark's live station at its tiny CPU size, hostcams traffic
+    with a transition: every mixed frame's planes and audio frame's
+    samples."""
+    bench = cells.load_benchmark()
+    spec = cells.resolve(bench, "live1080-transitions")
+    small = live.tiny(spec.config, spec.traffic)
+    config = dict(spec.config, **small["config"])
+    traffic = dict(spec.traffic, **small["traffic"])
+    cell = live.Cell(config, traffic, SEED, torch.device("cpu"))
+    frames = []
+
+    def on_frame(s):
+        if s.asset_id() == "live":
+            frames.append([p.clone() for p in s.planes()])
+        return EventBox.just(s)
+
+    keep = cell.picture_bus.subscribe(Tx(on_frame))
+    if traced:
+        spans.start()
+    for _ in range(steps):
+        cell.tick()
+    rec = spans.stop() if traced else None
+    cell.release()
+    del keep
+    return frames, [a for _v, _s, a in cell.audio_out], rec
+
+
+# every span the CPU path of a station reaches (the uploads and the frame
+# kernel's launches run only on the card)
+STATION_SPANS = {
+    "clock.step", "bus.append", "stage.repeater", "stage.picture_animator",
+    "stage.sound_animator", "stage.src", "stats.timer", "stats.recompute",
+    "stats.audio", "audio_mixer.tick", "audio_mixer.fold", "audio_mixer.emit",
+    "video_mixer.tick", "video_mixer.uniforms", "video_mixer.emit"}
+
+
+def test_tiny_station_same_output_traced_and_every_stage(one_thread):
+    # 520 steps of 10 ms: past the stats reports' first 5 s summary
+    plain_v, plain_a, _ = _tiny_station(False, 520)
+    traced_v, traced_a, rec = _tiny_station(True, 520)
+    assert len(plain_v) == len(traced_v) > 150
+    assert all(torch.equal(a, b) for fa, fb in zip(plain_v, traced_v)
+               for a, b in zip(fa, fb))
+    assert len(plain_a) == len(traced_a) > 500
+    assert all(np.array_equal(a, b) for a, b in zip(plain_a, traced_a))
+    names = {rec.names[k] for k in set(rec.name.tolist())}
+    assert names == STATION_SPANS
+    assert rec.counters["video_mixer.uniform_lookups"] >= 5 * len(traced_v)
+    assert 0 < rec.counters["video_mixer.uniform_misses"] \
+        < rec.counters["video_mixer.uniform_lookups"]
+    assert rec.step.max() == 519
+
+
+def test_wall_spans_on_the_cpu():
+    wall = MixingWall(n_streams=4, stream_size=(32, 18), canvas_size=(32, 16),
+                      grid=(2, 2), audio_samples=8, channels=2, device="cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    ys = torch.randint(0, 256, (4, 18, 32), dtype=torch.uint8, generator=gen)
+    us, vs = (torch.randint(0, 256, (4, 9, 16), dtype=torch.uint8,
+                            generator=gen) for _ in range(2))
+    au = torch.randint(-99, 99, (4, 16), dtype=torch.int16, generator=gen)
+    plain = wall.step(ys, us, vs, au, uniforms=wall.default_uniforms())
+    spans.start()
+    traced = wall.step(ys, us, vs, au, uniforms=wall.default_uniforms())
+    rec = spans.stop()
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))
+    assert [rec.names[k] for k in rec.name] == ["wall.step", "frame.cells",
+                                                "wall.audio"]
+    assert rec.parent.tolist() == [-1, 0, 0]
+
+
+@pytest.mark.cuda
+def test_spans_of_the_card_paths():
+    """On the card: an upload's page-locked copy and enqueue inside its
+    span, with its bytes counted, and the cell wrapper's launches inside
+    the wrapper's span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from swiftvideo_tpu_torch.ops import barriers
+    card = torch.device("cuda", torch.cuda.current_device())
+    planes = [np.full((36, 64), 7, np.uint8), np.full((18, 32), 9, np.uint8)]
+    wall = MixingWall(n_streams=4, stream_size=(64, 36), canvas_size=(64, 32),
+                      grid=(2, 2), audio_samples=8, channels=2, device=card)
+    ys = torch.zeros((4, 36, 64), dtype=torch.uint8, device=card)
+    us = vs = torch.zeros((4, 18, 32), dtype=torch.uint8, device=card)
+    au = torch.zeros((4, 16), dtype=torch.int16, device=card)
+    spans.start()
+    up = [barriers.upload(p, card) for p in planes]
+    wall.step(ys, us, vs, au)
+    torch.cuda.synchronize()
+    rec = spans.stop()
+    assert all(np.array_equal(t.cpu().numpy(), p) for t, p in zip(up, planes))
+    names = [rec.names[k] for k in rec.name]
+    assert names == ["barriers.upload", "barriers.pin", "barriers.h2d"] * 2 \
+        + ["wall.step", "frame.cells", "frame.launch", "wall.audio"]
+    assert rec.parent.tolist() == [-1, 0, 0, -1, 3, 3, -1, 6, 7, 6]
+    assert rec.counters == {"barriers.uploads": 2,
+                            "barriers.upload_bytes": 64 * 36 + 32 * 18}
+
+
+# --- the benchmark's readers of the records --------------------------------
+
+class _Trace:
+    """A device trace holding ``copies`` host-to-device copies of
+    ``seconds`` in all."""
+
+    def __init__(self, copies, seconds):
+        self.copies, self.seconds = copies, seconds
+
+    def kernel(self, name):
+        return (self.copies, self.seconds) if name == "Memcpy HtoD" \
+            else (0, 0.0)
+
+
+def _run(rec, frames, trace=None):
+    run = type("Run", (), {})()
+    run.program, run.frames, run.device_trace = rec, frames, trace
+    return run
+
+
+def _records(spans_, counters=None):
+    """Records of (name, start, end, parent) rows, on one thread."""
+    names = sorted({s[0] for s in spans_})
+    cols = list(zip(*spans_))
+    return spans.Records(
+        names, np.array([names.index(n) for n in cols[0]], np.int32),
+        np.array(cols[1], np.int64), np.array(cols[2], np.int64),
+        np.array(cols[3], np.int64), np.zeros(len(spans_), np.int64),
+        np.zeros(len(spans_), np.int64), counters or {})
+
+
+def _reader(name):
+    return cells.load_module(cells.ROOT / "svbench", "layers", name)
+
+
+def test_readers_of_self_time():
+    rec = _records([
+        ("clock.step", 0, 1_000_000, -1),
+        ("audio_mixer.tick", 100_000, 700_000, 0),
+        ("stats.timer", 150_000, 160_000, 1),
+        ("audio_mixer.emit", 400_000, 650_000, 1),
+        ("bus.append", 420_000, 600_000, 3),
+        ("stats.audio", 450_000, 500_000, 4),
+        ("stage.src", 500_000, 520_000, 4),
+        ("bus.append", 800_000, 900_000, 0)])
+    run = _run(rec, frames=2)
+    # clock.step 1 ms less the tick's 0.6 and the append's 0.1; the inner
+    # append 0.18 less its 0.07 of children; the outer append 0.1
+    assert _reader("core.self_ms").read(run) == pytest.approx(
+        (0.3 + 0.11 + 0.1) / 2)
+    assert _reader("stats.self_us").read(run) == pytest.approx((10 + 50) / 2)
+    assert _reader("stages.self_us").read(run) == pytest.approx(20 / 2)
+    assert _reader("audio_mixer.self_ms").read(run) == pytest.approx(
+        (0.6 - 0.25) / 2)
+    assert _reader("barriers.pin_ms").read(run) is None
+    assert _reader("core.self_ms").read(_run(rec, frames=0)) is None
+
+
+def test_readers_of_the_wall():
+    rec = _records([
+        ("wall.step", 0, 100_000, -1),
+        ("frame.cells", 10_000, 70_000, 0),
+        ("frame.launch", 20_000, 30_000, 1),
+        ("frame.launch", 40_000, 55_000, 1),
+        ("wall.audio", 75_000, 95_000, 0)])
+    run = _run(rec, frames=1)
+    assert _reader("wall.self_us").read(run) == pytest.approx(40)
+    assert _reader("cells.self_us").read(run) == pytest.approx(35)
+    assert _reader("cells.launch_us").read(run) == pytest.approx(25)
+    # a wrapper that launched nothing (the CPU route) has nothing to read
+    cpu = _run(_records([("wall.step", 0, 100_000, -1),
+                         ("frame.cells", 10_000, 70_000, 0)]), frames=1)
+    assert _reader("cells.self_us").read(cpu) is None
+    assert _reader("cells.launch_us").read(cpu) is None
+
+
+def test_readers_of_the_counters():
+    rec = _records([("barriers.pin", 0, 10, -1)], counters={
+        "barriers.uploads": 12, "barriers.upload_bytes": 12 * 3_110_400,
+        "video_mixer.uniform_lookups": 400,
+        "video_mixer.uniform_misses": 30})
+    # 3.1104 MB a copy in 0.125 ms a copy: 24.8832 GB/s
+    run = _run(rec, frames=1, trace=_Trace(80, 80 * 0.125e-3))
+    assert _reader("barriers.h2d_gbps").read(run) == pytest.approx(24.8832)
+    assert _reader("barriers.h2d_gbps").read(
+        _run(rec, frames=1, trace=None)) is None
+    assert _reader("video_mixer.uniform_miss_pct").read(run) == \
+        pytest.approx(7.5)
+    assert _reader("video_mixer.uniform_miss_pct").read(
+        _run(_records([("x", 0, 1, -1)]), frames=1)) is None
+    assert _reader("video_mixer.uniform_miss_pct").read(
+        _run(None, frames=1)) is None
