@@ -918,12 +918,12 @@ def batch_phases(dev, smi, rng):
              f"{stack_err}, grid_sample err {lib_err} vs plain")
     stack_ms = timed_ms(stack_call)
     stack_dev, stack_acts = device_total_ms(stack_call)
-    # the tick's host work: the cell wrapper, and its table (the kept
-    # layout with this call's pointers written in; a fresh numpy build
-    # beside it, the table each tick built before the layout was kept)
+    # the tick's host work: the cell wrapper, and its plan lookup (the
+    # check of the batch against the kept plan; a fresh numpy build of the
+    # table beside it, the table each tick built before layouts were kept)
     stack_host = host_us(stack_call, n=20)
-    table_host = host_us(lambda: frame.cell_params(
-        (tw, th), wall.grid_wh, [ys, us, vs], y420p, stack_unis, stack), n=20)
+    table_host = host_us(lambda: frame.cell_plan(
+        (tw, th), wall.grid_wh, [ys, us, vs], y420p, stack_unis), n=20)
     fresh_host = host_us(lambda: frame.cell_descriptors(
         (tw, th), [ys, us, vs], y420p, stack_unis, wall.grid_wh[0]), n=20)
     stack_lib_ms = timed_ms(stack_library, reps=10, batch=3)
@@ -954,7 +954,8 @@ def batch_phases(dev, smi, rng):
           f"bound {tick_bound:.6f} ms | plan tick: call {plan_ms:.4f} ms, "
           f"device {plan_dev:.4f} ms ({plan_acts:.0f} device activities), "
           f"host {tick_host:.1f} us (of it the cell wrapper {stack_host:.1f} "
-          f"us, its table {table_host:.1f} us; a fresh table {fresh_host:.1f} "
+          f"us, its plan lookup {table_host:.1f} us; a fresh table "
+          f"{fresh_host:.1f} "
           f"us), share {tick_bound / plan_dev:.1%} | "
           f"per-cell tick: call {cell_ms:.4f} ms, device {cell_dev:.4f} ms "
           f"({cell_acts:.0f} device activities), host {cell_host:.1f} us, "

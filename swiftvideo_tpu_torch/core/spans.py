@@ -64,7 +64,9 @@ The names, and what each covers:
 Counters: ``barriers.uploads`` and ``barriers.upload_bytes`` (the copies
 to the card and their bytes), ``video_mixer.uniform_lookups`` and
 ``video_mixer.uniform_misses`` (the video mixer's kept uniforms, and the
-lookups that had to compute them).
+lookups that had to compute them), ``frame.cell_plan_lookups`` and
+``frame.cell_plan_misses`` (the cell wrapper's kept plans, one lookup a
+call, and the lookups that built a plan).
 
 A site reads:
 

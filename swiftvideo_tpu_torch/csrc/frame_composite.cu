@@ -67,7 +67,9 @@
 //   cell.  No cell offset goes into the uniforms: it would move a tap.  A launch
 //   writes a band of whole cell rows; one whose band shares a cell row with the
 //   launch before it runs chained (ops/frame.py cell_launch_plan).  cell_h =
-//   cell_w = 0: no cell grid.
+//   cell_w = 0: no cell grid.  A layout's launches are kept on the host with
+//   offsets in their pointer fields (ops/frame.py CellPlan); sv_frame_cells adds
+//   the planes' base addresses and makes them all in one call from Python.
 //
 // Numerics follow golden operation for operation, and this file is compiled with
 // --fmad=false so no multiply-add pair is contracted into an FMA: the mask tests at
@@ -910,6 +912,22 @@ int resident_blocks(Kernel kernel, int which) {
   return cache[which][dev];
 }
 
+// One launch of `p` on `st`, as many blocks as the card holds at once (at most one per
+// tile); returns cudaGetLastError().
+int launch(const FrameParams& p, cudaStream_t st) {
+  const dim3 block(kThreads, 1, 1);
+  if (p.out_fmt == kOutRgba || p.out_fmt == kOutBgra) {
+    const int tiles = host_tiles(p.h, p.w);
+    const int grid = min(tiles, resident_blocks(frame_composite_rgba_kernel, 1));
+    frame_composite_rgba_kernel<<<grid, block, 0, st>>>(p);
+  } else {
+    const int tiles = host_tiles(p.h, p.w) + host_tiles(p.ch, p.cw);
+    const int grid = min(tiles, resident_blocks(frame_composite_kernel, 0));
+    frame_composite_kernel<<<grid, block, 0, st>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One launch: params points to a host FrameParams (ops/frame.py pack_params), copied
@@ -927,18 +945,40 @@ extern "C" int sv_frame_composite(const void* params, int device, void* stream) 
   int current = device;
   cudaGetDevice(&current);
   if (current != device) cudaSetDevice(device);
+  const int err = launch(p, static_cast<cudaStream_t>(stream));
+  if (current != device) cudaSetDevice(current);
+  return err;
+}
+
+// A kept cell plan's launches (ops/frame.py CellPlan): `launches` FrameParams one after
+// another at `words`, whose target pointers hold each launch's offsets into the canvas
+// planes and whose sources' plane pointers hold each frame's offsets into the batch's
+// planes.  Each launch is copied, out0-2 added to its three target pointers and src0-2
+// to plane k of each of its n sources (0 for a plane the format lacks, whose pointer
+// stays 0), and launched as sv_frame_composite launches; with `echo` not null, the
+// launch's FrameParams as launched is also written to echo[l].  Stops at the first
+// launch that fails and returns its cudaGetLastError(), else 0; the calling thread's
+// current device is left as it was.
+extern "C" int sv_frame_cells(const void* words, int launches, unsigned long long out0,
+                              unsigned long long out1, unsigned long long out2,
+                              unsigned long long src0, unsigned long long src1,
+                              unsigned long long src2, int device, void* stream, void* echo) {
+  const unsigned long long out[3] = {out0, out1, out2};
+  const unsigned long long src[3] = {src0, src1, src2};
+  int current = device;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(kThreads, 1, 1);
-  if (p.out_fmt == kOutRgba || p.out_fmt == kOutBgra) {
-    const int tiles = host_tiles(p.h, p.w);
-    const int grid = min(tiles, resident_blocks(frame_composite_rgba_kernel, 1));
-    frame_composite_rgba_kernel<<<grid, block, 0, st>>>(p);
-  } else {
-    const int tiles = host_tiles(p.h, p.w) + host_tiles(p.ch, p.cw);
-    const int grid = min(tiles, resident_blocks(frame_composite_kernel, 0));
-    frame_composite_kernel<<<grid, block, 0, st>>>(p);
+  int err = 0;
+  for (int l = 0; l < launches && err == 0; ++l) {
+    FrameParams p;
+    std::memcpy(&p, static_cast<const FrameParams*>(words) + l, sizeof p);
+    for (int k = 0; k < 3; ++k) p.out[k] += out[k];
+    for (int j = 0; j < p.n && j < kCapacity; ++j)
+      for (int k = 0; k < 3; ++k) p.src[j].plane[k] += src[k];
+    if (echo != nullptr) std::memcpy(static_cast<FrameParams*>(echo) + l, &p, sizeof p);
+    err = launch(p, st);
   }
-  const int err = static_cast<int>(cudaGetLastError());
   if (current != device) cudaSetDevice(current);
   return err;
 }

@@ -26,9 +26,12 @@ own cell of a grid of cell rows and columns (the mixing wall's canvas, or
 a one-column stack of scaled frames): the header's cell grid makes the
 kernel place every pixel inside its cell, so a launch of up to
 ``CAPACITY`` cells gives the pixels of one launch per cell.  A layout's
-launches (boxes, dims, format, uniforms, bands of cell rows) are built
-once and kept by value (``cell_layout``); a call writes only the plane
-and target pointers into copies of them (``cell_params``).
+launches (boxes, dims, format, uniforms, bands of cell rows, each frame's
+offset into the batch) are built once and kept as a ``CellPlan``
+(``cell_plan``); a call that repeats the layout checks its planes against
+the plan and hands the plan and six base addresses to one C call, which
+adds the bases and makes the launches (``cell_params`` gives the same
+words on the host).
 
 The kernels are built on first use with ``nvcc`` into ``build/`` inside
 this package (ops/nvcc.py: a plain C interface, loaded with ctypes) and
@@ -103,6 +106,11 @@ def build() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.sv_frame_cells.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                                       + [ctypes.c_uint64] * 6
+                                       + [ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_void_p])
+        lib.sv_frame_cells.restype = ctypes.c_int
         for info in (lib.sv_frame_params_size, lib.sv_frame_capacity):
             info.argtypes = []
             info.restype = ctypes.c_int
@@ -298,11 +306,8 @@ def launch_plan(n: int) -> List[Tuple[int, int]]:
     return [(a, min(a + CAPACITY, n)) for a in range(0, max(n, 1), CAPACITY)]
 
 
-# a FrameParams as 64-bit words: the target pointers are words 0-2, and
-# source j's plane pointers words _SRC_WORD + j * _DESC_WORDS onwards
-assert _PARAMS.itemsize % 8 == 0 and _DESC.itemsize % 8 == 0
-_PARAMS_WORDS = _PARAMS.itemsize // 8
-_SRC_WORD, _DESC_WORDS = _HEADER.itemsize // 8, _DESC.itemsize // 8
+# a FrameParams is kept as whole 64-bit words (CellPlan.words)
+assert _PARAMS.itemsize % 8 == 0
 
 
 def cell_launch_plan(n: int, cols: int,
@@ -358,46 +363,129 @@ def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
     return params
 
 
+class CellPlan:
+    """The launches of one layout of cells, kept for every call that repeats
+    it: the FrameParams of each launch of ``cell_launch_plan`` (``table``,
+    and the same bytes as rows of 64-bit words, ``words``, read-only) with
+    every field but the pointers filled in, each launch's target pointers
+    holding its band's offsets into the canvas planes, and each source's
+    plane pointers its frame times the plane's frame stride.  Nothing here
+    depends on where the planes lie: a live wall's frames are new
+    allocations every tick, and a call adds the planes' base addresses
+    (``params`` on the host, ``sv_frame_cells`` in the launch).  The key:
+    the cell size, the grid as the call gave it (None: one column), the
+    format, each plane's shape and strides (u8), the device and the packed
+    uniforms' float32 bytes."""
+
+    __slots__ = ("cell", "grid_arg", "grid", "fmt", "shapes", "strides",
+                 "device", "u", "table", "words", "ptr", "out_shapes")
+
+    def __init__(self, cell, grid_arg, fmt, shapes, strides, device, u):
+        self.cell, self.grid_arg, self.fmt = cell, grid_arg, fmt
+        self.shapes, self.strides, self.device, self.u = (shapes, strides,
+                                                          device, u)
+        w, h = cell
+        n = shapes[0][0]
+        cols, rows = self.grid = (1, n) if grid_arg is None else grid_arg
+        self.out_shapes = ((rows * h, cols * w),) + (
+            (rows * h // 2, cols * w // 2),) * 2
+        chroma = shapes[1] if len(shapes) > 1 else shapes[0]
+        table = _cell_rows(cell, cols, fmt, shapes[0][1:3] + chroma[1:3],
+                           np.frombuffer(u, np.float32).reshape(-1, 29))
+        table["plane"][:, :len(strides)] = (
+            np.arange(n, dtype=np.uint64)[:, None]
+            * np.array([s[0] for s in strides], np.uint64))
+        # a contiguous canvas plane's bytes per cell row
+        row_bytes = np.array([h * cols * w] + [(h // 2) * (cols * w // 2)] * 2,
+                             np.uint64)
+        bands = cell_launch_plan(n, cols, rows)
+        self.table = np.zeros(len(bands), _PARAMS)
+        for k, (a, b, r0, r1, chained) in enumerate(bands):
+            band = table[a:b].copy()
+            band["box"][:, 0, :2] -= r0 * h
+            band["box"][:, 1, :2] -= r0 * (h // 2)
+            self.table[k] = pack_params((cols * w, (r1 - r0) * h),
+                                        PixelFormat.y420p, (), band, chained,
+                                        cell=cell)
+            self.table[k]["head"]["out"] = np.uint64(r0) * row_bytes
+        self.table.flags.writeable = False
+        self.words = self.table.view(np.uint64).reshape(len(bands), -1)
+        self.ptr = self.table.ctypes.data
+
+    def fits(self, cell_size, grid, planes, fmt) -> bool:
+        """Whether a call's cell size, grid, format and planes are the
+        plan's: each plane a u8 tensor on the plan's device of the plan's
+        shape and strides (so each frame as contiguous as the plan's)."""
+        if (tuple(cell_size) != self.cell or fmt is not self.fmt
+                or (grid if grid is None else tuple(grid)) != self.grid_arg
+                or len(planes) != len(self.shapes)):
+            return False
+        dev = self.device
+        for p, shape, stride in zip(planes, self.shapes, self.strides):
+            if not (isinstance(p, torch.Tensor) and p.dtype is torch.uint8
+                    and p.shape == shape and p.stride() == stride
+                    and p.device == dev):
+                return False
+        return True
+
+    def params(self, outs, planes) -> np.ndarray:
+        """The words ``sv_frame_cells`` launches for the canvas planes
+        ``outs`` and the batch ``planes``: each launch's target pointers
+        plus the canvas planes' addresses, and plane k of each of its
+        sources plus plane k's address."""
+        table = self.table.copy()
+        table["head"]["out"] += np.array([o.data_ptr() for o in outs],
+                                         np.uint64)
+        bases = np.zeros(3, np.uint64)
+        bases[:len(planes)] = [p.data_ptr() for p in planes]
+        live = np.arange(CAPACITY) < table["head"]["n"][:, None]
+        table["src"]["plane"] += np.where(live[..., None], bases,
+                                          np.uint64(0))
+        return table.view(np.uint64).reshape(len(table), -1)
+
+
+# the last plan a lookup returned: the one a steady caller repeats
+_recent: Optional[CellPlan] = None
+
+
 @lru_cache(maxsize=64)
-def cell_layout(cell_size: Tuple[int, int], grid: Tuple[int, int],
-                fmt: PixelFormat, dims: Tuple[int, int, int, int],
-                u: bytes) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
-                                   np.ndarray]:
-    """The launches of a layout of cells, kept by value: (the FrameParams
-    of each launch of ``cell_launch_plan`` as a read-only row of 64-bit
-    words with no plane or target pointer, each launch's band offsets into
-    the canvas planes, the flat indices of the words that take the
-    sources' plane pointers, and each source's frame, in that order).
-    ``grid`` = (columns, rows), ``dims`` the frames' (``_batch_dims``),
-    ``u`` the packed uniforms' float32 bytes.  Each source's boxes are its
-    boxes on the grid moved up to its launch's band.  Nothing here depends
-    on where the planes lie: a live wall's frames are new allocations
-    every tick."""
+def _plan(cell, grid_arg, fmt, shapes, strides, device, u) -> CellPlan:
+    if spans.ON:
+        spans.count("frame.cell_plan_misses")
+    return CellPlan(cell, grid_arg, fmt, shapes, strides, device, u)
+
+
+def cell_plan(cell_size: Tuple[int, int], grid: Optional[Tuple[int, int]],
+              planes, fmt: PixelFormat, uniforms) -> CellPlan:
+    """The kept plan of a call of ``composite_cells_cuda`` (its arguments
+    as it takes them).  A call whose planes, cell size, grid, format and
+    uniforms (by value) are the last plan's takes it after checking just
+    that; any other goes through every check of the batch, raising what it
+    finds, then takes the plan of its key, built on first use."""
+    global _recent
+    if spans.ON:
+        spans.count("frame.cell_plan_lookups")
+    planes = list(planes)
+    plan = _recent
+    if (plan is not None and plan.fits(cell_size, grid, planes, fmt)
+            and np.asarray(uniforms, np.float32).tobytes() == plan.u):
+        return plan
     w, h = int(cell_size[0]), int(cell_size[1])
-    cols, rows = grid
-    uniforms = np.frombuffer(u, np.float32).reshape(-1, 29)
-    table = _cell_rows((w, h), cols, fmt, dims, uniforms)
-    # a contiguous canvas plane's bytes per cell row
-    row_bytes = np.array([h * cols * w, (h // 2) * (cols * w // 2),
-                          (h // 2) * (cols * w // 2)], np.uint64)
-    words, tops, at = [], [], []
-    for a, b, r0, r1, chained in cell_launch_plan(len(table), cols, rows):
-        band = table[a:b].copy()
-        band["box"][:, 0, :2] -= r0 * h
-        band["box"][:, 1, :2] -= r0 * (h // 2)
-        params = pack_params((cols * w, (r1 - r0) * h), PixelFormat.y420p,
-                             (), band, chained, cell=(w, h))
-        at.append(len(words) * _PARAMS_WORDS + _SRC_WORD
-                  + _DESC_WORDS * np.arange(b - a)[:, None]
-                  + np.arange(num_planes(fmt)))
-        words.append(np.frombuffer(params.tobytes(), np.uint64))
-        tops.append(np.uint64(r0) * row_bytes)
-    kept = (np.stack(words), np.stack(tops),
-            np.concatenate([i.ravel() for i in at]),
-            np.arange(len(table), dtype=np.uint64)[:, None])
-    for array in kept:
-        array.flags.writeable = False
-    return kept
+    if w <= 0 or h <= 0 or w % 2 or h % 2:
+        raise ValueError(f"cells of {cell_size} need even, positive sizes")
+    dev, n = _check_batch(planes, fmt)
+    u = np.ascontiguousarray(uniforms, np.float32).reshape(-1, 29)
+    if len(u) != n:
+        raise ValueError(f"{len(u)} uniform rows for {n} frames")
+    cols, rows = (1, n) if grid is None else (int(grid[0]), int(grid[1]))
+    if cols <= 0 or rows <= 0 or cols * rows < n:
+        raise ValueError(f"a grid of {cols}x{rows} cells holds fewer than "
+                         f"{n} frames")
+    plan = _recent = _plan(
+        (w, h), None if grid is None else (cols, rows), fmt,
+        tuple(tuple(p.shape) for p in planes),
+        tuple(p.stride() for p in planes), dev, u.tobytes())
+    return plan
 
 
 def cell_params(cell_size: Tuple[int, int], grid: Tuple[int, int], planes,
@@ -405,19 +493,12 @@ def cell_params(cell_size: Tuple[int, int], grid: Tuple[int, int], planes,
                 outs) -> List[np.ndarray]:
     """The FrameParams, as 64-bit words, of each launch that puts frame i
     of ``planes`` on cell i of the ``grid`` = (columns, rows) canvas
-    ``outs`` (its three contiguous y420p planes): a copy of
-    ``cell_layout``'s words with each launch's band of the canvas and each
-    frame's planes (its plane pointers plus the frame times their frame
-    strides) written in."""
-    u = np.ascontiguousarray(uniforms, np.float32).reshape(-1, 29)
-    words, tops, at, frames = cell_layout(
-        tuple(cell_size), tuple(grid), fmt, _batch_dims(planes), u.tobytes())
-    params = words.copy()
-    params[:, :3] = np.array([o.data_ptr() for o in outs], np.uint64) + tops
-    bases = np.array([p.data_ptr() for p in planes], np.uint64)
-    steps = np.array([p.stride(0) for p in planes], np.uint64)
-    params.reshape(-1)[at] = (bases + frames * steps).ravel()
-    return list(params)
+    ``outs`` (its three contiguous y420p planes): what
+    ``composite_cells_cuda`` launches, its plan's words with the canvas's
+    and the planes' addresses added (``CellPlan.params``)."""
+    planes = list(planes)
+    return list(cell_plan(cell_size, grid, planes, fmt, uniforms)
+                .params(outs, planes))
 
 
 def _launch(lib, params: np.ndarray, index: int, stream: int,
@@ -431,6 +512,31 @@ def _launch(lib, params: np.ndarray, index: int, stream: int,
         raise RuntimeError(f"frame_composite launch failed: CUDA error {err}")
     launches += 1
     kernel_launches[kernel] += 1
+
+
+def _launch_cells(plan: CellPlan, outs, planes, dev: torch.device,
+                  echo: Optional[np.ndarray] = None) -> None:
+    """Make ``plan``'s launches onto the canvas planes ``outs`` from the
+    batch ``planes`` with one C call; ``echo`` ([launches, words] u64)
+    receives each launch's words as launched."""
+    global launches
+    lib = build()
+    # the current stream's handle, as torch.cuda.current_stream(dev)
+    # .cuda_stream gives it, without building a Stream object (5 us a call
+    # on the card's host)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    bases = [p.data_ptr() for p in planes] + [0] * (3 - len(planes))
+    span = spans.ON and spans.begin("frame.launch")
+    err = lib.sv_frame_cells(plan.ptr, len(plan.words), outs[0].data_ptr(),
+                             outs[1].data_ptr(), outs[2].data_ptr(), *bases,
+                             dev.index, stream,
+                             None if echo is None else echo.ctypes.data)
+    if span:
+        spans.end(span)
+    if err != 0:
+        raise RuntimeError(f"frame_composite launch failed: CUDA error {err}")
+    launches += len(plan.words)
+    kernel_launches[YUV_KERNEL] += len(plan.words)
 
 
 def composite_frame_cuda(size: Tuple[int, int], sources,
@@ -503,43 +609,31 @@ def composite_cells_cuda(cell_size: Tuple[int, int], planes,
     Returns the canvas's three u8 planes, [rows h, columns w] and two
     [rows h / 2, columns w / 2], on the frames' device.  On the card: one
     launch a ``CAPACITY`` cells onto its band of cell rows, chained where a
-    band shares a row with the launch before (``cell_launch_plan``), from
-    a table kept per layout (``cell_params``); CPU tensors take the plain
-    per-cell fold (``composite_cells_torch``).  Only y420p canvases are
-    written: another ``out_fmt`` raises."""
+    band shares a row with the launch before (``cell_launch_plan``), all
+    made by one C call from the layout's kept plan (``cell_plan``); CPU
+    tensors take the plain per-cell fold (``composite_cells_torch``).
+    Only y420p canvases are written: another ``out_fmt`` raises."""
     span = spans.ON and spans.begin("frame.cells")
     if out_fmt != PixelFormat.y420p:
         raise ValueError(f"a cell grid needs a y420p target, not {out_fmt}")
-    w, h = int(cell_size[0]), int(cell_size[1])
-    if w <= 0 or h <= 0 or w % 2 or h % 2:
-        raise ValueError(f"cells of {cell_size} need even, positive sizes")
     planes = list(planes)
-    dev, n = _check_batch(planes, fmt)
-    uniforms = np.asarray(uniforms, np.float32).reshape(-1, 29)
-    if len(uniforms) != n:
-        raise ValueError(f"{len(uniforms)} uniform rows for {n} frames")
-    cols, rows = (1, n) if grid is None else (int(grid[0]), int(grid[1]))
-    if cols <= 0 or rows <= 0 or cols * rows < n:
-        raise ValueError(f"a grid of {cols}x{rows} cells holds fewer than "
-                         f"{n} frames")
+    plan = cell_plan(cell_size, grid, planes, fmt, uniforms)
+    dev = plan.device
     if dev.type == "cpu":
         frames = zip(*(p.unbind(0) for p in planes))
+        unis = np.frombuffer(plan.u, np.float32).reshape(-1, 29)
         outs = composite_cells_torch(
-            (w, h), [(list(f), fmt, u) for f, u in zip(frames, uniforms)], dev,
-            grid=(cols, rows))
+            plan.cell, [(list(f), fmt, u) for f, u in zip(frames, unis)], dev,
+            grid=plan.grid)
         if span:
             spans.end(span)
         return outs
     if dev.type != "cuda":
         raise ValueError(f"frame kernel runs on cuda, not {dev}")
-    outs = [torch.empty((rows * r, cols * c), dtype=torch.uint8, device=dev)
-            for r, c in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
-    lib = build()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for params in cell_params((w, h), (cols, rows), planes, fmt, uniforms,
-                              outs):
-        _launch(lib, params, index, stream, YUV_KERNEL)
+    # the shape as separate ints: torch parses them faster than a tuple
+    outs = [torch.empty(*s, dtype=torch.uint8, device=dev)
+            for s in plan.out_shapes]
+    _launch_cells(plan, outs, planes, dev)
     if span:
         spans.end(span)
     return outs

@@ -10,7 +10,9 @@ bookkeeping; the ladder's rungs (one frame-kernel launch each, 0 LSB
 against the plain composite; the products, kept as a comparison, within 1
 LSB and raising under the TF32 switches), the frame kernel's cell launch
 (0 LSB against the per-cell plain fold, one launch per 32 cells; onto a
-canvas of cell rows and columns, chained bands included) and the mixing
+canvas of cell rows and columns, chained bands included), its kept plan
+(new addresses and new uniforms, 0 LSB; the words the C entry launched
+against the plan's words on the host) and the mixing
 wall's default and per-cell paths through it (0 LSB); the upload
 barrier's copies, many in flight at once (exact).  Marked ``cuda``; they skip where there is no card.  Run them on the
 card with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -613,6 +615,45 @@ def test_wall_canvas_on_card_over_chained_launches(card):
     assert all(torch.equal(g, w) for g, w in zip(out[:3], want))
     host = np.clip(pcm.astype(np.int64).sum(0), -32768, 32767)
     assert np.array_equal(out[3].cpu().numpy(), host)
+
+
+@pytest.mark.parametrize("n,grid,canvas", [(64, (8, 8), (256, 144)),
+                                           (40, (7, 6), (224, 108))],
+                         ids=["64 on 8x8", "40 on 7x6"])
+def test_kept_cell_plan_on_card(card, n, grid, canvas):
+    """The cell wrapper's kept plan: three batches at new addresses, then a
+    change of uniforms; each canvas 0 LSB against the plain canvas, the
+    first three from one plan; the words the C entry launched equal the
+    plan's words on the host (``cell_params``), launch by launch, and its
+    launches give the same canvas."""
+    rng = np.random.default_rng(n)
+    sw, sh = 96, 54
+    cell = (canvas[0] // grid[0], canvas[1] // grid[1])
+    unis = _cell_unis(n, (sw, sh), cell, rng)
+    plans = []
+    for k in range(4):
+        if k == 3:
+            unis = unis.copy()
+            unis[2] = identity_uniforms((sw, sh), cell, opacity=0.5).pack()
+        planes = _y420p(rng, sw, sh, card, n)
+        launches = frame.launches
+        got = frame.composite_cells_cuda(cell, planes, PF.y420p, unis,
+                                         grid=grid)
+        assert frame.launches == launches + len(frame.launch_plan(n))
+        plans.append(frame.cell_plan(cell, grid, planes, PF.y420p, unis))
+        want = composite.composite_cells_torch(
+            cell, [([p[i] for p in planes], PF.y420p, unis[i])
+                   for i in range(n)], card, grid=grid)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        plan = plans[-1]
+        echo = np.zeros_like(plan.words)
+        outs = [torch.empty_like(g) for g in got]
+        frame._launch_cells(plan, outs, planes, card, echo=echo)
+        host = frame.cell_params(cell, grid, planes, PF.y420p, unis, outs)
+        assert np.array_equal(echo, np.stack(host))
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, g) for o, g in zip(outs, got))
+    assert plans[0] is plans[1] is plans[2] is not plans[3]
 
 
 @pytest.mark.parametrize("n", [16, 14], ids=["aligned 16", "blank-fill 14"])

@@ -9,10 +9,11 @@ and the routes that take it on the card, on the CPU.
   changes lies inside its box; the box cache tells cell sizes apart.
 * The canvas of cell rows and columns: boxes shifted to each cell's row
   and column (grids whose width does not divide 32 included), the launch
-  bands and their chaining, the launch table kept per layout against a
-  fresh build after new frames at new addresses, and the launches run on
-  a CPU emulation of the kernel's launch semantics against the plain
-  canvas.
+  bands and their chaining, the launch table kept per layout (the cell
+  plan) against a fresh build after new frames at new addresses, its
+  rebuild on a new key (uniforms, strides, dims, grid), its counters, and
+  the launches run on a CPU emulation of the kernel's launch semantics
+  against the plain canvas.
 * The plain version of the cell launch: bit for bit the per-cell fold (one
   frame composite per cell, stacked, or blanked and placed on the canvas
   by the wall's own assembly), and within 1 LSB of the JAX package's
@@ -43,6 +44,7 @@ import pytest
 import torch
 
 from swiftvideo_tpu.parallel import MixingWall as JaxWall, make_mesh
+from swiftvideo_tpu_torch.core import spans
 from swiftvideo_tpu_torch.media import PixelFormat as PortPF
 from swiftvideo_tpu_torch.ops import composite, frame, matscale
 from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms, rect_uniforms
@@ -315,19 +317,35 @@ def _fresh_params(cell, grid, planes, unis, outs):
     return launches
 
 
+@pytest.fixture
+def plan_counts(monkeypatch):
+    """No cell plan kept and the port's recorder on; returns a function
+    that gives the (lookups, misses) counted since it was last called."""
+    frame._plan.cache_clear()
+    monkeypatch.setattr(frame, "_recent", None)
+    spans.start()
+
+    def counts():
+        c = spans.stop().counters
+        spans.start()
+        return (c.get("frame.cell_plan_lookups", 0),
+                c.get("frame.cell_plan_misses", 0))
+    yield counts
+    spans.stop()
+
+
 @pytest.mark.parametrize("n,cols,rows", [(9, 3, 3), (40, 7, 6), (64, 8, 8),
                                          (70, 40, 2)], ids=lambda v: str(v))
 def test_kept_launch_table_after_a_pointer_rewrite_equals_a_fresh_build(
-        n, cols, rows):
+        plan_counts, n, cols, rows):
     """Three batches of new frames at new addresses, one layout: the
-    table is built once, and each call's params (the kept ones with the
-    pointers written in) are byte for byte a fresh build's; new uniforms
-    make a new table."""
+    plan is built once, and each call's params (the plan's words with the
+    addresses added) are byte for byte a fresh build's; new uniforms make a
+    new plan."""
     cell = (34, 18)
     rng = np.random.default_rng(40 + n)
     unis = _cell_uniforms(n, (32, 16), cell, rng)
     size = (cols * cell[0], rows * cell[1])
-    frame.cell_layout.cache_clear()
     for k in range(4):
         if k == 3:
             unis = unis.copy()
@@ -339,8 +357,57 @@ def test_kept_launch_table_after_a_pointer_rewrite_equals_a_fresh_build(
         want = _fresh_params(cell, (cols, rows), planes, unis, outs)
         assert len(got) == len(want) == len(frame.launch_plan(n))
         assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
-    info = frame.cell_layout.cache_info()
-    assert (info.misses, info.hits) == (2, 2)
+    # one lookup a call, one miss a build
+    assert plan_counts() == (4, 2)
+
+
+def _changed(change, rng, n, planes, unis, grid):
+    """The batch, uniforms and grid of a call that changes one part of the
+    plan's key, or none ("equal uniforms": the same values in a new
+    array)."""
+    cell = (34, 18)
+    if change == "uniforms in place":
+        unis[4, 0] += 0.25
+    elif change == "equal uniforms":
+        unis = unis.copy()
+    elif change == "strides":
+        # every other frame of a batch twice as long: each frame's pointer
+        # steps by twice the frame stride
+        planes = [p[::2] for p in _batch(rng, 2 * n, (32, 16), cell)[0]]
+    elif change == "dims":
+        planes = _batch(rng, n, (48, 16), cell)[0]
+    elif change == "grid":
+        grid = (grid[0] + 1, grid[1])
+    return planes, unis, grid
+
+
+@pytest.mark.parametrize("change", ["uniforms in place", "equal uniforms",
+                                    "strides", "dims", "grid"])
+def test_cell_plan_is_rebuilt_when_its_key_changes(plan_counts, change):
+    """A call that repeats the last plan's key at new addresses takes the
+    plan; one that changes the uniforms (by value, even in the same array),
+    the planes' strides or dims, or the grid builds a new plan, whose words
+    are a fresh build's; the same values in a new array are the same
+    key."""
+    n, grid, cell = 9, (3, 3), (34, 18)
+    rng = np.random.default_rng(90)
+    planes, unis = _batch(rng, n, (32, 16), cell)
+    first = frame.cell_plan(cell, grid, planes, Y420P, unis)
+    again = frame.cell_plan(cell, grid, _batch(rng, n, (32, 16), cell)[0],
+                            Y420P, unis)
+    assert again is first and plan_counts() == (2, 1)
+    planes, unis, grid = _changed(change, rng, n, _batch(rng, n, (32, 16),
+                                                         cell)[0], unis, grid)
+    plan = frame.cell_plan(cell, grid, planes, Y420P, unis)
+    rebuilt = change != "equal uniforms"
+    assert (plan is not first) == rebuilt
+    assert plan_counts() == (1, int(rebuilt))
+    size = (grid[0] * cell[0], grid[1] * cell[1])
+    outs = composite.clear_planes(Y420P, size, CPU)
+    got = frame.cell_params(cell, grid, planes, Y420P, unis, outs)
+    want = _fresh_params(cell, grid, planes, unis, outs)
+    assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
+    assert plan_counts() == (1, 0)
 
 
 def _run_emulated(launches, planes, outs, cell, cols):
@@ -474,9 +541,15 @@ def test_cell_plain_canvas_equals_the_assembled_per_cell_fold(n, cols, rows):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_cell_launch_refuses_bad_batches():
+def test_cell_launch_refuses_bad_batches(plan_counts):
+    """Every bad batch raises what the full checks raise, after a good call
+    of the same layout (so each meets the kept plan's check first); the
+    kept plan stays the good one."""
     planes, unis = _batch(np.random.default_rng(6), 2, (32, 16), (34, 18))
     ys, us, vs = planes
+    frame.composite_cells_cuda((34, 18), planes, Y420P, unis)
+    kept = frame._recent
+    assert kept is not None and plan_counts() == (1, 1)
     with pytest.raises(ValueError, match="even"):
         frame.composite_cells_cuda((33, 18), planes, Y420P, unis)
     with pytest.raises(ValueError, match="one batch"):
@@ -495,6 +568,7 @@ def test_cell_launch_refuses_bad_batches():
     with pytest.raises(TypeError):
         frame.composite_cells_cuda((34, 18), [ys.float(), us, vs], Y420P,
                                    unis)
+    assert frame._recent is kept and plan_counts() == (7, 0)
     # frames need not be adjacent: each frame's pointer steps by the frame
     # stride
     every_other = [p[::2] for p in _batch(np.random.default_rng(7), 4,

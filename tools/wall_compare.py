@@ -10,8 +10,11 @@ entry points: the transcode ladder (``matscale.scale_y420p``, a 1080p y420p
 frame to the three rungs of ``LADDER_RUNGS``) and the 64-stream wall
 (``MixingWall.step``, 1080p streams onto 240x136 tiles of a 1920x1088
 canvas, 800 stereo samples a stream): the default-cell tick, the per-cell
-tick with cell 0 at opacity 0.5, and the default-cell tick of 60 streams
-on the same grid (4 blank cells).  The wall's streams are a ring of
+tick with cell 0 at opacity 0.5, the animated tick (the per-cell tick
+with cell 0's opacity new every tick, from ``ANIMATED_SETS`` sets of
+uniforms taken in turn: more than a kept layout's cache holds, so no tick
+repeats a kept layout), and the default-cell tick of 60 streams on the
+same grid (4 blank cells).  The wall's streams are a ring of
 ``WALL_RING`` batches made on the card (batch k from seed 15 + k), and
 each tick takes the next batch, so every tick composites new frames at
 new addresses, as a live wall does.  Each result, on every batch of the
@@ -43,6 +46,9 @@ from chip_smoke import (W, H, LADDER_RUNGS, WALL_CANVAS,  # noqa: E402
                         WALL_RING, WALL_SAMPLES, WALL_STREAMS, camera_planes,
                         device_total_ms, host_us, max_err, ring_of,
                         timed_ms, wall_batches)
+
+# the animated tick's sets of uniforms, taken in turn
+ANIMATED_SETS = 199
 
 
 def main() -> None:
@@ -100,13 +106,24 @@ def main() -> None:
     audio = wall.shard(pcm)
     unis = wall.default_uniforms()
     unis[0] = identity_uniforms((W, H), (tw, th), opacity=0.5).pack()
+    animated = [unis.copy() for _ in range(ANIMATED_SETS)]
+    for k, u in enumerate(animated):
+        u[0] = identity_uniforms((W, H), (tw, th),
+                                 opacity=0.25 + 0.5 * k / ANIMATED_SETS).pack()
     next_plan, next_cells, next60 = ring_of(ring), ring_of(ring), ring_of(ring60)
+    next_animated, next_unis = ring_of(ring), ring_of(animated)
+    last_unis = [None]
 
     def tick_plan(batch=None):
         return wall.step(*(batch or next_plan()), audio)
 
     def tick_cells(batch=None):
         return wall.step(*(batch or next_cells()), audio, uniforms=unis)
+
+    def tick_animated(batch=None):
+        last_unis[0] = next_unis()
+        return wall.step(*(batch or next_animated()), audio,
+                         uniforms=last_unis[0])
 
     def tick60(batch=None):
         return wall60.step(*(batch or next60()), audio[:n60])
@@ -120,17 +137,19 @@ def main() -> None:
     for name, tick, count, cell_unis in (
             ("wall plan tick", tick_plan, n, None),
             ("wall per-cell tick", tick_cells, n, unis),
+            ("wall animated tick", tick_animated, n, last_unis),
             ("wall 60-stream tick", tick60, n60, None)):
         want_audio = np.clip(pcm[:count].astype(np.int64).sum(0), -32768, 32767)
         err = 0
         for k in range(WALL_RING):
             batch = ring[k] if count == n else ring60[k]
             out = tick(batch)
+            tick_unis = last_unis[0] if cell_unis is last_unis else cell_unis
             if not np.array_equal(out[3].cpu().numpy(), want_audio):
                 raise SystemExit(f"{name}: the audio differs from the host sum")
             for s in range(count):
-                uni = (identity_uniforms((W, H), (tw, th)) if cell_unis is None
-                       else cell_unis[s])
+                uni = (identity_uniforms((W, H), (tw, th)) if tick_unis is None
+                       else tick_unis[s])
                 err = max(err, check(f"{name} batch {k} cell {s}", cell(out, s),
                                      plain([p[s] for p in batch], (tw, th),
                                            uni)))
@@ -144,6 +163,7 @@ def main() -> None:
     result = {}
     for name, fn in (("ladder", ladder), ("wall plan tick", tick_plan),
                      ("wall per-cell tick", tick_cells),
+                     ("wall animated tick", tick_animated),
                      ("wall 60-stream tick", tick60)):
         dev_ms, acts = device_total_ms(fn, n=10)
         result[name] = {"ms": timed_ms(fn, reps=10, batch=3),
