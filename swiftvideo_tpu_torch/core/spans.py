@@ -59,6 +59,11 @@ The names, and what each covers:
 ``wall.audio``             its audio mix, and
 ``frame.cells``            the cell wrapper (``composite_cells_cuda``),
                            whose launches are ``frame.launch`` spans
+``motion.search``          a motion search through the compute registry
+                           (``run_compute_kernel``'s motion branch: the
+                           planes, the wrapper calls, the map's buffer),
+                           with
+``motion.launch``          each of its kernel launches (the ctypes call)
 =========================  ==============================================
 
 Counters: ``barriers.uploads`` and ``barriers.upload_bytes`` (the copies
@@ -66,7 +71,8 @@ to the card and their bytes), ``video_mixer.uniform_lookups`` and
 ``video_mixer.uniform_misses`` (the video mixer's kept uniforms, and the
 lookups that had to compute them), ``frame.cell_plan_lookups`` and
 ``frame.cell_plan_misses`` (the cell wrapper's kept plans, one lookup a
-call, and the lookups that built a plan).
+call, and the lookups that built a plan), ``motion.searches`` (the
+registry's motion searches, one a ``motion.search`` span).
 
 A site reads:
 

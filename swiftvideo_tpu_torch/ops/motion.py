@@ -26,7 +26,9 @@ others one step apart.  ``me_fullsearch`` launches a kernel of
 ``motion_ssd_kernel`` replace the TPU kernels
 ``motion.py::_me_pallas_program`` and ``::_me_ssd_pallas_program``) and
 takes the plain version for CPU tensors.  ``launches`` counts kernel
-launches, ``route_launches`` the launches of each kernel.
+launches, ``route_launches`` the launches of each kernel; while the
+recorder (``core/spans.py``) is on, each launch's ctypes call is a
+``motion.launch`` span.
 
 ``me_fullsearch_pyramid`` is the two-stage search of the JAX package's
 ``motion.py::me_fullsearch_pyramid``: a coarse SSD search over a stride-2
@@ -57,6 +59,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..core import spans
 from . import nvcc
 
 SOURCE = nvcc.CSRC / "motion_search.cu"
@@ -664,11 +667,14 @@ def me_fullsearch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
     n_d = tables(block, search)[1].shape[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        span = spans.ON and spans.begin("motion.launch")
         err = lib.sv_motion_search(cur.data_ptr(), ref.data_ptr(), h, w, search,
                                    METRICS.index(metric), pl.data_ptr(),
                                    gr.data_ptr(), gr.shape[0], n_d,
                                    cost.data_ptr(), lut.data_ptr(),
                                    out.data_ptr(), stream)
+        if span:
+            spans.end(span)
     if err != 0:
         raise RuntimeError(f"{KERNELS[metric]} launch failed: CUDA error {err}")
     launches += 1
@@ -704,9 +710,12 @@ def me_coarse(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
     pl, gr = _device_plan(h, w, search, GROUP["ssd"], dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        span = spans.ON and spans.begin("motion.launch")
         err = fn(cur.data_ptr(), ref.data_ptr(), h, w, search, stride,
                  pl.data_ptr(), gr.data_ptr(), gr.shape[0], axis.data_ptr(),
                  raw.data_ptr(), stream)
+        if span:
+            spans.end(span)
     if err != 0:
         raise RuntimeError(f"{COARSE_KERNELS[stride]} launch failed: CUDA "
                            f"error {err}")
@@ -743,10 +752,13 @@ def me_refine(cur: torch.Tensor, ref: torch.Tensor, raw: torch.Tensor,
     raw = raw.to(torch.int32).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        span = spans.ON and spans.begin("motion.launch")
         err = fn(cur.data_ptr(), ref.data_ptr(), h, w, search, refine,
                  METRICS.index(metric), pl.data_ptr(), pl.shape[0],
                  raw.data_ptr(), n_d, cost.data_ptr(), lut.data_ptr(),
                  out.data_ptr(), stream)
+        if span:
+            spans.end(span)
     if err != 0:
         raise RuntimeError(f"{REFINE_KERNEL} launch failed: CUDA error {err}")
     launches += 1

@@ -12,7 +12,9 @@ raises; on ``cpu`` everything runs the plain torch version
 (ops/composite.py).
 ``me_fullsearch`` / ``me_fullsearch_ssd`` run the motion search and
 ``me_fullsearch_pyramid`` the two-stage search with its defaults
-(ops/motion.py).  ``custom``
+(ops/motion.py); while the recorder (core/spans.py) is on, each such
+search is a ``motion.search`` span and counts one ``motion.searches``.
+``custom``
 kernels are user-registered callables (compute.swift .custom case).
 """
 
@@ -24,6 +26,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..core import spans
 from ..media.picture import BufferType, ImageBuffer, PictureSample
 from ..media.pixel import PixelFormat, planar_to_packed422, planes_for_format
 
@@ -189,6 +192,7 @@ def run_compute_kernel(ctx: ComputeContext, images, target: PictureSample,
         # block resolution comes back (kernels.metal:206-267)
         if len(images) < 2:
             raise ComputeError("badInputData")
+        span = spans.ON and spans.begin("motion.search")
         cur, ref = to_device([images[0].planes()[0], images[1].planes()[0]],
                              ctx.device)
         if name == "me_fullsearch_pyramid":
@@ -204,6 +208,9 @@ def run_compute_kernel(ctx: ComputeContext, images, target: PictureSample,
                           planes=tuple(planes_for_format(PixelFormat.RGBA,
                                                          (w, h))),
                           buffers=(mv,))
+        if span:
+            spans.end(span)
+            spans.count("motion.searches")
         return target.with_(img=img)
     if name == "snd_s16i_s16i":
         raise ComputeError("snd_s16i_s16i runs via ops.audio.mix_s16_device")

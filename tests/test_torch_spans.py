@@ -293,8 +293,12 @@ def test_spans_of_the_card_paths():
     assert names == ["barriers.upload", "barriers.pin", "barriers.h2d"] * 2 \
         + ["wall.step", "frame.cells", "frame.launch", "wall.audio"]
     assert rec.parent.tolist() == [-1, 0, 0, -1, 3, 3, -1, 6, 7, 6]
-    assert rec.counters == {"barriers.uploads": 2,
-                            "barriers.upload_bytes": 64 * 36 + 32 * 18}
+    # the cell wrapper's plan lookup is counted too (a miss only where no
+    # earlier call built this layout's plan)
+    assert {k: v for k, v in rec.counters.items()
+            if not k.startswith("frame.cell_plan_")} == {
+        "barriers.uploads": 2, "barriers.upload_bytes": 64 * 36 + 32 * 18}
+    assert rec.counters["frame.cell_plan_lookups"] == 1
 
 
 # --- the benchmark's readers of the records --------------------------------
@@ -389,3 +393,106 @@ def test_readers_of_the_counters():
         _run(_records([("x", 0, 1, -1)]), frames=1)) is None
     assert _reader("video_mixer.uniform_miss_pct").read(
         _run(None, frames=1)) is None
+
+
+# --- the motion search through the compute registry ------------------------
+
+def _motion_search(device, name="me_fullsearch_pyramid", seed=SEED):
+    """One registry search of a 64x48 pair on ``device``: the map."""
+    from swiftvideo_tpu_torch.media import (BufferType, ImageBuffer,
+                                            PictureSample, PixelFormat,
+                                            create_picture_sample,
+                                            planes_for_format)
+    from swiftvideo_tpu_torch.ops import registry
+    gen = torch.Generator().manual_seed(seed)
+    samples = []
+    for _ in range(2):
+        planes = [torch.randint(0, 256, s, dtype=torch.uint8, generator=gen)
+                  .to(device) for s in ((48, 64), (24, 32), (24, 32))]
+        img = ImageBuffer(pixel_format=PixelFormat.y420p,
+                          buffer_type=(BufferType.gpu
+                                       if planes[0].is_cuda
+                                       else BufferType.cpu),
+                          size=(64, 48),
+                          planes=tuple(planes_for_format(PixelFormat.y420p,
+                                                         (64, 48))),
+                          buffers=tuple(planes))
+        samples.append(PictureSample(img, "cam", "w"))
+    target = create_picture_sample((4, 3), PixelFormat.RGBA, asset_id="mv",
+                                   workspace_id="w")
+    return registry.run_compute_kernel(
+        registry.make_compute_context(device), samples, target,
+        registry.default_compute_kernel_from_string(name)).planes()[0]
+
+
+@pytest.mark.parametrize("name", ["me_fullsearch_pyramid", "me_fullsearch"])
+def test_motion_search_span_and_counter(name):
+    """A registry search with the recorder on is one ``motion.search``
+    span (no launch on the CPU: the plain versions) and counts one search;
+    its map is the untraced one."""
+    plain = _motion_search("cpu", name)
+    spans.start()
+    traced = _motion_search("cpu", name)
+    rec = spans.stop()
+    assert torch.equal(plain, traced)
+    assert [rec.names[k] for k in rec.name] == ["motion.search"]
+    assert rec.counters == {"motion.searches": 1}
+
+
+def test_motion_search_off_records_nothing(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a site reached the recorder while it was off")
+
+    monkeypatch.setattr(spans, "begin", refuse)
+    monkeypatch.setattr(spans, "count", refuse)
+    _motion_search("cpu")
+    rec = spans.stop()
+    assert len(rec) == 0 and rec.counters == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,launched", [
+    ("me_fullsearch_pyramid", 2), ("me_fullsearch", 1)])
+def test_motion_launches_inside_the_search_on_the_card(name, launched):
+    """On the card each kernel launch is a ``motion.launch`` span inside
+    the ``motion.search`` span, and the map is the untraced one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from swiftvideo_tpu_torch.ops import motion
+    card = torch.device("cuda", torch.cuda.current_device())
+    plain = _motion_search(card, name)
+    torch.cuda.synchronize()
+    before = motion.launches
+    spans.start()
+    traced = _motion_search(card, name)
+    torch.cuda.synchronize()
+    rec = spans.stop()
+    assert torch.equal(plain, traced)
+    assert motion.launches - before == launched
+    names = [rec.names[k] for k in rec.name]
+    assert names == ["motion.search"] + ["motion.launch"] * launched
+    assert rec.parent.tolist() == [-1] + [0] * launched
+    assert rec.counters == {"motion.searches": 1}
+
+
+def test_readers_of_the_motion_search():
+    rec = _records([
+        ("motion.search", 0, 100_000, -1),
+        ("motion.launch", 20_000, 30_000, 0),
+        ("motion.launch", 40_000, 55_000, 0),
+        ("motion.search", 200_000, 260_000, -1),
+        ("motion.launch", 210_000, 215_000, 3),
+        ("motion.launch", 220_000, 225_000, 3),
+        ("motion.launch", 300_000, 310_000, -1)],
+        counters={"motion.searches": 2})
+    run = _run(rec, frames=2)
+    # searches 160 us less their four launches' 35: 62.5 a search; the
+    # launch outside any search is not counted
+    assert _reader("motion.self_us").read(run) == pytest.approx(62.5)
+    assert _reader("motion.launch_us").read(run) == pytest.approx(17.5)
+    # the CPU route launches nothing: its own time, and no launch time
+    cpu = _run(_records([("motion.search", 0, 40_000, -1)],
+                        counters={"motion.searches": 1}), frames=1)
+    assert _reader("motion.self_us").read(cpu) == pytest.approx(40)
+    assert _reader("motion.launch_us").read(cpu) is None
+    assert _reader("motion.self_us").read(_run(None, frames=1)) is None
