@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds both kernel sources of ``swiftvideo_tpu_torch/csrc`` (one nvcc each,
-started together) and drives the port's paths at full size:
+Builds the three kernel sources of ``swiftvideo_tpu_torch/csrc`` (one nvcc
+each, started together) and drives the port's paths at full size:
 
 * the frame kernel on yuv targets (K1 cameras, K2 overlays) against the
   plain torch version at the live-station size (a 1080p canvas, four
@@ -41,7 +41,10 @@ started together) and drives the port's paths at full size:
   stream, the audio equal to the host sum, and 60 streams on the same grid
   (two launches, the excess cells blank from the kernel's clear), each
   tick on every batch of a ring of ``WALL_RING`` input batches and timed
-  over the ring (new frames at new addresses each tick).
+  over the ring (new frames at new addresses each tick); the wall's audio
+  mix kernel (``wall_audio_kernel``) alone on the tick's 64 x 1600 s16,
+  bit-exact against its plain version and its in-order float32 contract,
+  timed beside the plain version's six torch ops.
   The dense products, the route these paths took before, run beside them
   as a comparison only (within 1 LSB), and ``F.grid_sample`` on the same
   inputs is timed as the library yardstick (within 1 LSB);
@@ -159,7 +162,9 @@ REPLACES = {"K1": "swiftvideo_tpu/ops/pallas_frame.py:127",
             # the pyramid's two stages: the grouped-conv coarse program and
             # the refine program (both XLA, around no Pallas kernel)
             "coarse": "swiftvideo_tpu/ops/motion.py:537",
-            "refine": "swiftvideo_tpu/ops/motion.py:1265"}
+            "refine": "swiftvideo_tpu/ops/motion.py:1265",
+            # the wall's audio: XLA ops, no Pallas kernel
+            "wall audio": "swiftvideo_tpu/parallel/wall.py:126"}
 # the two-stage search (phase 17) and the codec-fed station (phase 19): the
 # refine's half-width, and the station's video frames and 10 ms audio
 # packets at 44.1 kHz
@@ -576,7 +581,8 @@ def batch_phases(dev, smi, rng):
     from swiftvideo_tpu_torch.core import TimePoint
     from swiftvideo_tpu_torch.media import AudioFormat, AudioSample, PixelFormat
     from swiftvideo_tpu_torch.mix import AudioSampleRateConversion
-    from swiftvideo_tpu_torch.ops import composite, frame, matscale, resample
+    from swiftvideo_tpu_torch.ops import (audio, composite, frame, matscale,
+                                          resample)
     from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms
     from swiftvideo_tpu_torch.parallel import MixingWall
     y420p = PixelFormat.y420p
@@ -779,14 +785,16 @@ def batch_phases(dev, smi, rng):
 
     def counted(fn):
         """fn's result and (K1 launches, product calls, plain composites,
-        tile-assembly calls) it made, each count set to 0 just before."""
+        tile-assembly calls, audio kernel launches) it made, each count set
+        to 0 just before."""
         torch.cuda.synchronize()
         frame.launches = matscale.calls = composite.calls = 0
+        audio.launches = 0
         with counting_assembly() as assembly:
             out = fn()
         torch.cuda.synchronize()
         return out, (frame.launches, matscale.calls, composite.calls,
-                     sum(assembly.values()))
+                     sum(assembly.values()), audio.launches)
 
     tick_launches = len(frame.launch_plan(n))
     plain_tiles = {}
@@ -811,11 +819,12 @@ def batch_phases(dev, smi, rng):
         cell_out, got_cells = counted(
             lambda: wall.step(*ring[k], audio_t, gains_t, uniforms=unis))
         for name, got in (("plan", got_plan), ("per-cell", got_cells)):
-            if got != (tick_launches, 0, 0, 0):
+            if got != (tick_launches, 0, 0, 0, 1):
                 fail(f"wall {name} tick of ring batch {k}: {got[0]} K1 "
                      f"launches (want {tick_launches}), {got[1]} product "
                      f"calls, {got[2]} plain composites, {got[3]} tile-"
-                     f"assembly calls")
+                     f"assembly calls, {got[4]} audio kernel launches "
+                     f"(want 1)")
         plan_counts, cell_counts = got_plan, got_cells
         for s in range(n):
             plan_err = max(plan_err, max_err(cells(plan_out, s),
@@ -851,9 +860,10 @@ def batch_phases(dev, smi, rng):
     for k in range(WALL_RING):
         out60, counts60 = counted(lambda: wall60.step(
             *ring60[k], audio_t[:n60], gains_t[:n60]))
-        if counts60 != (len(frame.launch_plan(n60)), 0, 0, 0):
+        if counts60 != (len(frame.launch_plan(n60)), 0, 0, 0, 1):
             fail(f"wall of {n60}, ring batch {k}: (K1 launches, product "
-                 f"calls, plain composites, tile-assembly calls) {counts60}")
+                 f"calls, plain composites, tile-assembly calls, audio "
+                 f"kernel launches) {counts60}")
         for s in range(n60):
             err60 = max(err60, max_err(cells(out60, s), plain_tile(k, s))[0])
         blank &= all(int(c[0].max()) == 0 and all(bool((p == 128).all())
@@ -941,14 +951,17 @@ def batch_phases(dev, smi, rng):
           f"the per-cell plain fold] plan tick: "
           f"{plan_counts[0]} K1 launches, {plan_counts[1]} product calls, "
           f"{plan_counts[2]} plain composites, {plan_counts[3]} tile-assembly "
-          f"calls, every tile err {plan_err}; "
+          f"calls, {plan_counts[4]} audio kernel launch, every tile err "
+          f"{plan_err}; "
           f"per-cell tick (tile 0 at opacity 0.5): {cell_counts[0]} K1 "
           f"launches, {cell_counts[1]} product calls, {cell_counts[2]} plain "
-          f"composites, {cell_counts[3]} tile-assembly calls, every tile err "
+          f"composites, {cell_counts[3]} tile-assembly calls, "
+          f"{cell_counts[4]} audio kernel launch, every tile err "
           f"{cell_err}; the products (comparison "
           f"only) err {dense_err} ({dense_at1} px at 1 LSB); audio equal to "
           f"the host sum; {n60} streams: {counts60[0]} K1 launches, "
-          f"{counts60[3]} tile-assembly calls, tiles err {err60}, 4 excess "
+          f"{counts60[3]} tile-assembly calls, {counts60[4]} audio kernel "
+          f"launch, tiles err {err60}, 4 excess "
           f"cells blank | the function: "
           f"{wall_taps / 1e6:.3f} MB of tap sectors, canvas and audio, byte "
           f"bound {tick_bound:.6f} ms | plan tick: call {plan_ms:.4f} ms, "
@@ -1020,7 +1033,58 @@ def batch_phases(dev, smi, rng):
                 "plain_ms": timed_ms(cell_plain, reps=5, batch=2),
                 "bound_ms": k1_bms, "bound_by": k1_by,
                 "library_ms": timed_ms(cell_library)}
-    return [ladder_row, cell_row, tick_row]
+
+    # the wall's audio mix kernel alone on the tick's audio: bit-exact
+    # against the plain version under the cell's unity gains and the
+    # ticks' power-of-two gains, and against the in-order float32
+    # emulation under random gains
+    unity_t = wall.default_gains()
+    random_t = torch.from_numpy(rng.uniform(0.0, 1.7, n).astype(
+        np.float32)).to(dev)
+    audio.launches = 0
+    mix_err = max(max_err([audio.mix_wall_s16_cuda(audio_t, g)],
+                          [audio.mix_wall_s16_torch(audio_t, g)])[0]
+                  for g in (unity_t, gains_t))
+    order_err = max_err([audio.mix_wall_s16_cuda(audio_t, random_t)],
+                        [audio.mix_wall_s16_in_order(audio_t, random_t)])[0]
+    torch.cuda.synchronize()
+    mix_launches = audio.launches
+    if mix_err or order_err or mix_launches != 3:
+        fail(f"wall audio kernel: err {mix_err} vs plain, {order_err} vs the "
+             f"in-order emulation, {mix_launches} launches for 3 calls")
+
+    def mix_call():
+        return audio.mix_wall_s16_cuda(audio_t, unity_t)
+
+    def mix_plain():
+        return audio.mix_wall_s16_torch(audio_t, unity_t)
+
+    mix_bytes = audio_t.numel() * 2 + unity_t.numel() * 4 \
+        + audio_t.shape[1] * 2
+    mix_bms, mix_by = bound(mix_bytes, 0, 1.0)
+    mix_ms, mix_dev = timed_ms(mix_call), device_ms(mix_call, audio.KERNEL)
+    mix_host = host_us(mix_call, n=200)
+    mix_plain_ms = timed_ms(mix_plain)
+    mix_plain_host = host_us(mix_plain, n=200)
+    print(f"[15 wall audio, {n} streams x {audio_t.shape[1]} s16] "
+          f"{audio.KERNEL}: err {mix_err} vs plain (unity and power-of-two "
+          f"gains), {order_err} vs the in-order emulation (random gains), one "
+          f"launch a call, {plan_counts[4]} a wall tick | call {mix_ms * 1e3:.2f} us, device "
+          f"{mix_dev * 1e3:.2f} us, host {mix_host:.1f} us, byte bound "
+          f"{mix_bms * 1e3:.4f} us ({mix_bytes} B), share "
+          f"{mix_bms / mix_dev:.2%} | plain (six torch ops): call "
+          f"{mix_plain_ms * 1e3:.2f} us, host {mix_plain_host:.1f} us | {smi}",
+          flush=True)
+    mix_row = {"name": f"{audio.KERNEL} (the wall's audio mix: {n} streams x "
+                       f"{audio_t.shape[1]} s16, unity gains)",
+               "route": "cuda",
+               "source": "swiftvideo_tpu_torch/csrc/audio_mix.cu",
+               "replaces": REPLACES["wall audio"],
+               "launches": plan_counts[4],
+               "max_abs_err": max(mix_err, order_err), "ms": mix_ms,
+               "device_ms": mix_dev, "plain_ms": mix_plain_ms,
+               "bound_ms": mix_bms, "bound_by": mix_by, "library_ms": None}
+    return [ladder_row, cell_row, tick_row, mix_row]
 
 
 def pyramid_frames(h, w, seed, dev):
@@ -2819,15 +2883,17 @@ def main() -> None:
 
     # phase 2: build every kernel source at once
     t0 = time.perf_counter()
-    nvcc.build_all([frame.SOURCE, motion.SOURCE])
+    nvcc.build_all([frame.SOURCE, motion.SOURCE, audio.SOURCE])
     frame.build()
     motion.build()
-    # the frame kernels' registers here, the motion kernels' below
+    audio.build()
+    # the frame and audio kernels' registers here, the motion kernels' below
     regs = [f"{name}: {ln.split(':', 1)[1].strip()}"
             for name, log in sorted(nvcc.build_logs.items())
             if name != motion.SOURCE.stem
             for ln in log.splitlines() if "registers" in ln]
-    print(f"[2 build] frame_composite.cu and motion_search.cu built and loaded "
+    print(f"[2 build] frame_composite.cu, motion_search.cu and audio_mix.cu "
+          f"built and loaded "
           f"in {time.perf_counter() - t0:.2f} s; {'; '.join(regs) or 'cached'}",
           flush=True)
     sass = kernel_sass(nvcc.library_path(motion.SOURCE))

@@ -15,15 +15,24 @@ The host functions stay numpy (they are the oracle and the small-tick
 path); ``mix_s16_device`` / ``mix_s16_device_batched`` /
 ``mix_s16_device_windowed`` run on whatever device their input tensors
 live on.
+
+The mixing wall's N-way mix (``mix_wall_s16_cuda``: gain, float32 sum over
+the streams, trunc, s16 clamp) is a hand-written kernel on the card,
+``csrc/audio_mix.cu``, built on first use with ``nvcc`` (ops/nvcc.py) and
+launched on the current stream; CPU tensors take its plain version,
+``mix_wall_s16_torch``.  ``launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from . import nvcc
 
 
 def smoothstep(edge0: float, edge1: float, val):
@@ -155,6 +164,112 @@ def mix_s16_device_windowed(inputs: torch.Tensor, gains, starts, ends,
         contrib = torch.where((idx >= lo) & (idx < hi), contrib, 0)
         acc = torch.clamp(acc + contrib, -32768, 32767)
     return acc.to(torch.int16)
+
+
+# --- the mixing wall's mix (csrc/audio_mix.cu) ------------------------------
+
+SOURCE = nvcc.CSRC / "audio_mix.cu"
+KERNEL = "wall_audio_kernel"
+
+# launches of the wall's mix kernel since import; a plain integer so a run
+# can show that its mixes went through the kernel
+launches = 0
+_lib = None
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source/flags digest) and load the mix kernel's
+    library, kept for every later call."""
+    global _lib
+    if _lib is None:
+        lib = nvcc.load(SOURCE)
+        lib.sv_wall_audio.argtypes = ([ctypes.c_void_p] * 3
+                                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.sv_wall_audio.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def wall_sum_f32(audio: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
+    """The float32 sum over streams of ``gains[s] * audio[s]``: [S, n] s16
+    with [S] float32 gains -> [n] float32 (torch.sum's order)."""
+    return torch.sum(audio.to(torch.float32) * gains[:, None], dim=0)
+
+
+def saturate_s16(total: torch.Tensor) -> torch.Tensor:
+    """A float32 sum to s16: trunc toward zero, clamp to [-32768, 32767]."""
+    return torch.clamp(torch.trunc(total), -32768, 32767).to(torch.int16)
+
+
+def mix_wall_s16_torch(audio: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``mix_wall_s16_cuda``, on the tensors' device."""
+    return saturate_s16(wall_sum_f32(audio, gains))
+
+
+def mix_wall_s16_in_order(audio: torch.Tensor,
+                          gains: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch, its contract for any gains:
+    the sum from 0.0 over stream 0 to S - 1 in order, each float32 product
+    and each add rounded on its own, then trunc and the s16 clamp."""
+    acc = torch.zeros(audio.shape[1], dtype=torch.float32,
+                      device=audio.device)
+    for s in range(audio.shape[0]):
+        acc = acc + audio[s].to(torch.float32) * gains[s]
+    return saturate_s16(acc)
+
+
+def _check_wall(audio, gains) -> torch.device:
+    """Validate a wall mix's inputs; returns the device they live on."""
+    if not isinstance(audio, torch.Tensor) or audio.dtype != torch.int16:
+        raise TypeError("audio must be an int16 tensor")
+    if not isinstance(gains, torch.Tensor) or gains.dtype != torch.float32:
+        raise TypeError("gains must be a float32 tensor")
+    if audio.dim() != 2 or gains.shape != audio.shape[:1]:
+        raise ValueError(f"audio {tuple(audio.shape)} and gains "
+                         f"{tuple(gains.shape)} are not [streams, samples] "
+                         f"and [streams]")
+    if not (audio.is_contiguous() and gains.is_contiguous()):
+        raise ValueError("audio and gains must be contiguous")
+    dev = audio.device
+    if gains.device != dev:
+        raise ValueError(f"gains on {gains.device}, audio on {dev}")
+    return dev
+
+
+def mix_wall_s16_cuda(audio: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
+    """Mix [S, n] contiguous s16 ``audio`` with [S] contiguous float32
+    ``gains`` on the same device into [n] s16: for every sample, trunc of
+    the float32 sum of ``gains[s] * audio[s]``, clamped to s16.
+
+    On the card one launch of ``wall_audio_kernel`` into a new tensor, on
+    the current stream: it sums stream 0 to S - 1 in order, each product
+    and each add rounded to float32 on its own, which equals the plain
+    version wherever every partial sum is exact (unity or power-of-two
+    gains below 2**24) and is the kernel's contract elsewhere
+    (``mix_wall_s16_in_order``).  CPU tensors take the plain version
+    (``mix_wall_s16_torch``)."""
+    global launches
+    dev = _check_wall(audio, gains)
+    if dev.type == "cpu":
+        return mix_wall_s16_torch(audio, gains)
+    if dev.type != "cuda":
+        raise ValueError(f"the wall's mix kernel runs on cuda, not {dev}")
+    streams, samples = audio.shape
+    if streams >= 2**31 or samples >= 2**31:
+        raise ValueError(f"audio {tuple(audio.shape)} is too large a launch")
+    out = torch.empty(samples, dtype=torch.int16, device=dev)
+    if samples == 0:
+        return out
+    # the current stream's handle without building a Stream object, as
+    # ops/frame.py takes it
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = build().sv_wall_audio(audio.data_ptr(), gains.data_ptr(),
+                                out.data_ptr(), streams, samples, dev.index,
+                                stream)
+    if err != 0:
+        raise RuntimeError(f"wall audio launch failed: CUDA error {err}")
+    launches += 1
+    return out
 
 
 # --- audio stats (stats.audio.swift:19-86) --------------------------------

@@ -12,6 +12,9 @@ over the ranks as the JAX package splits it over a device mesh:
   the whole wall, with padded and excess cells blank;
 * audio: each rank sums gain * sample over its streams in float32, one
   ``all_reduce`` adds the partial sums, then trunc and a clamp to s16.
+  Without a group the whole mix is one launch of the wall's mix kernel on
+  the card (``ops/audio.mix_wall_s16_cuda``), its plain version for CPU
+  tensors.
 
 Two video paths, as in the JAX package: default uniforms (every cell a
 pure full-coverage scale) and per-cell uniforms (aspect fit, offset,
@@ -44,6 +47,8 @@ import torch.distributed as dist
 from ..core import spans
 from ..media.pixel import PixelFormat
 from ..ops import frame
+from ..ops import audio as audio_ops
+from ..ops.audio import saturate_s16, wall_sum_f32
 from ..ops.composite import packed
 from ..ops.matscale import plan_scale, scale_y420p_batch
 from ..ops.registry import make_compute_context
@@ -206,28 +211,48 @@ class MixingWall:
         return tuple(_rows_assemble(self._blank_fix(t, f), gh, gw)
                      for t, f in zip(tiles, _FILL))
 
-    def _mix_audio(self, audio: torch.Tensor, gains) -> torch.Tensor:
-        gains = torch.as_tensor(gains, dtype=torch.float32,
-                                device=audio.device)
-        total = torch.sum(audio.to(torch.float32) * gains[:, None], dim=0)
-        if self.group is not None:
-            dist.all_reduce(total, group=self.group)
-        return torch.clamp(torch.trunc(total), -32768, 32767).to(torch.int16)
+    def _mix_audio(self, audio: torch.Tensor, gains=None) -> torch.Tensor:
+        """The tick's mix: [local, samples] s16 audio with [local] gains (the
+        kept unity gains for None) -> [samples] s16.  Card audio on a
+        one-device wall takes the mix kernel; CPU audio takes the plain
+        version, and a rank adds its float32 partial sum over the ranks
+        before the trunc and clamp."""
+        if spans.ON:
+            spans.count("wall.audio_mixes")
+        if gains is not None:
+            gains = torch.as_tensor(gains, dtype=torch.float32,
+                                    device=audio.device).contiguous()
+        elif audio.is_cuda:
+            gains = self._gains
+        else:
+            gains = self._gains.cpu()
+        if self.group is not None or not audio.is_cuda:
+            total = wall_sum_f32(audio, gains)
+            if self.group is not None:
+                dist.all_reduce(total, group=self.group)
+            return saturate_s16(total)
+        launched = audio_ops.launches
+        mixed = audio_ops.mix_wall_s16_cuda(audio, gains)
+        if spans.ON and audio_ops.launches != launched:
+            spans.count("wall.audio_kernel_mixes")
+        return mixed
 
     def step(self, ys, us, vs, audio, gains=None, uniforms=None):
         """One wall tick over this rank's streams.  ys/us/vs: [local, ...]
-        u8 planes; audio: [local, samples * channels] s16; gains: [local]
-        float32; uniforms: optional [local, 29] per-cell composite uniforms.
-        Returns (wall_y, wall_u, wall_v, mixed).
+        u8 planes; audio: [local, samples * channels] s16 (contiguous on
+        the card); gains: [local] float32 (the wall's kept unity gains
+        without them);
+        uniforms: optional [local, 29] per-cell composite uniforms.  Returns
+        (wall_y, wall_u, wall_v, mixed).
 
         On the card every cell takes the frame kernel's cell launch, with
         the identity uniforms without ``uniforms``, straight onto the wall
         (one card) or this rank's band (aligned ranks); on the CPU default
         cells take the products of ops/matscale.py, per-cell uniforms the
-        plain per-cell fold, and the tiles are assembled."""
+        plain per-cell fold, and the tiles are assembled.  The audio mix
+        comes after the cell launches, so that its launch's host time runs
+        while the card composites."""
         span = spans.ON and spans.begin("wall.step")
-        if gains is None:
-            gains = self._gains
         if uniforms is None:
             uniforms = self._unis
         if self._canvas is not None:

@@ -3,7 +3,10 @@ BGRA targets) and the motion search (SAD and SSD) against their plain torch
 versions on the same CUDA tensors, the two-stage motion search (the
 coarse kernel on the stride-2 grid, K5's coarse mode on the stride-1 grid,
 and the refine kernel) against its plain version, and the audio
-folds against the host loop; the batch paths: the ladder's products (<= 1 LSB against the plain
+folds against the host loop; the wall's audio mix kernel against its
+plain version (bit-exact where every sum is exact) and its in-order
+float32 contract (bit-exact for every gain), at the wall's shape and at
+sample counts that leave a tail; the batch paths: the ladder's products (<= 1 LSB against the plain
 composite, and raising under the TF32 switches), the batched fold (exact),
 the device resampler (< 1e-4 against the host route) and the SRC stage's
 bookkeeping; the ladder's rungs (one frame-kernel launch each, 0 LSB
@@ -35,6 +38,7 @@ from swiftvideo_tpu_torch.ops import (audio, barriers, composite, frame,
                                       matscale, motion, registry, resample)
 from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms, rect_uniforms
 from swiftvideo_tpu_torch.parallel import MixingWall
+from wall_audio_cases import EXACT_KINDS, case as wall_audio_case
 
 pytestmark = pytest.mark.cuda
 
@@ -693,6 +697,67 @@ def test_wall_plan_and_per_cell_paths_on_card(card, n):
         want_k = composite.composite_stack_torch(
             PF.y420p, (tw, th), [(planes, PF.y420p, unis[s])], card)
         assert all(torch.equal(g, w) for g, w in zip(cells_k, want_k))
+
+
+# --- the wall's audio mix kernel (csrc/audio_mix.cu) ---------------------
+
+# 64 x 1600: the wall64 cell's tick (16-byte copies); 1, 7, 13 and 1604
+# samples are not whole 16-byte pieces (2-byte loads), and leave a block's
+# tail; 8 and 24 are whole pieces with fewer samples than a block's 64; 130
+# and 70 streams stage more than one tile of 64 streams
+@pytest.mark.parametrize("streams,samples", [(64, 1600), (64, 1920), (5, 1),
+                                             (3, 7), (40, 13), (64, 1604),
+                                             (17, 8), (33, 24), (130, 1600),
+                                             (70, 13)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("kind", EXACT_KINDS + ["random"])
+def test_wall_audio_kernel_matches_plain_on_card(card, kind, streams,
+                                                 samples):
+    """Bit-exact against the plain version where every sum is exact, and
+    against the in-order emulation for every gain; one launch a call."""
+    pcm, gains = wall_audio_case(kind, streams, samples, streams * samples)
+    launches = audio.launches
+    got = audio.mix_wall_s16_cuda(pcm.to(card), gains.to(card))
+    assert audio.launches == launches + 1
+    assert got.is_cuda and got.dtype == torch.int16 and got.shape == (samples,)
+    got = got.cpu()
+    assert torch.equal(got, audio.mix_wall_s16_in_order(pcm, gains))
+    if kind != "random":
+        assert torch.equal(got, audio.mix_wall_s16_torch(pcm, gains))
+        plain = audio.mix_wall_s16_torch(pcm.to(card), gains.to(card))
+        assert torch.equal(got, plain.cpu())
+
+
+def test_wall_audio_kernel_sums_in_stream_order_on_card(card):
+    """2**24 + 1 rounds back to 2**24 in float32: stream 0 first gives 0
+    where the reverse order gives 1, with 16-byte copies and 2-byte
+    loads."""
+    for samples in (8, 3):
+        pcm = torch.tensor([[16384] * samples, [1] * samples,
+                            [-16384] * samples], dtype=torch.int16)
+        gains = torch.tensor([1024.0, 1.0, 1024.0])
+        got = audio.mix_wall_s16_cuda(pcm.to(card), gains.to(card))
+        assert got.cpu().tolist() == [0] * samples
+
+
+def test_wall_audio_kernel_on_unaligned_rows_on_card(card):
+    """Audio whose first row starts 2 bytes past a 16-byte boundary is
+    staged with 2-byte loads, with the same result."""
+    pcm, gains = wall_audio_case("random", 64, 1600, 7)
+    buf = torch.zeros(64 * 1600 + 1, dtype=torch.int16, device=card)
+    buf[1:] = pcm.reshape(-1).to(card)
+    shifted = buf[1:].view(64, 1600)
+    assert shifted.data_ptr() % 16 == 2 and shifted.is_contiguous()
+    got = audio.mix_wall_s16_cuda(shifted, gains.to(card))
+    assert torch.equal(got.cpu(), audio.mix_wall_s16_in_order(pcm, gains))
+
+
+def test_wall_audio_kernel_refuses_host_gains_on_card(card):
+    pcm, gains = wall_audio_case("unity", 4, 16, 3)
+    launches = audio.launches
+    with pytest.raises(ValueError):
+        audio.mix_wall_s16_cuda(pcm.to(card), gains)
+    assert audio.launches == launches
 
 
 def _cell(wall_planes, s, gw, tile):

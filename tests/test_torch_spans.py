@@ -271,8 +271,8 @@ def test_wall_spans_on_the_cpu():
 @pytest.mark.cuda
 def test_spans_of_the_card_paths():
     """On the card: an upload's page-locked copy and enqueue inside its
-    span, with its bytes counted, and the cell wrapper's launches inside
-    the wrapper's span."""
+    span, with its bytes counted, the cell wrapper's launches inside the
+    wrapper's span, and the wall's audio mix counted as a kernel mix."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from swiftvideo_tpu_torch.ops import barriers
@@ -297,7 +297,8 @@ def test_spans_of_the_card_paths():
     # earlier call built this layout's plan)
     assert {k: v for k, v in rec.counters.items()
             if not k.startswith("frame.cell_plan_")} == {
-        "barriers.uploads": 2, "barriers.upload_bytes": 64 * 36 + 32 * 18}
+        "barriers.uploads": 2, "barriers.upload_bytes": 64 * 36 + 32 * 18,
+        "wall.audio_mixes": 1, "wall.audio_kernel_mixes": 1}
     assert rec.counters["frame.cell_plan_lookups"] == 1
 
 
@@ -393,6 +394,19 @@ def test_readers_of_the_counters():
         _run(_records([("x", 0, 1, -1)]), frames=1)) is None
     assert _reader("video_mixer.uniform_miss_pct").read(
         _run(None, frames=1)) is None
+
+
+def test_reader_of_the_wall_audio_kernel_share():
+    reader = _reader("wall.audio_kernel_pct")
+    rec = _records([("wall.step", 0, 10, -1)], counters={
+        "wall.audio_mixes": 40, "wall.audio_kernel_mixes": 30})
+    assert reader.read(_run(rec, frames=1, trace=_Trace(0, 0.0))) == \
+        pytest.approx(75.0)
+    # a CPU run (no device trace) and a program that counts no mix
+    assert reader.read(_run(rec, frames=1, trace=None)) is None
+    assert reader.read(_run(_records([("wall.step", 0, 10, -1)]), frames=1,
+                            trace=_Trace(0, 0.0))) is None
+    assert reader.read(_run(None, frames=1, trace=_Trace(0, 0.0))) is None
 
 
 # --- the motion search through the compute registry ------------------------
