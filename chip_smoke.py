@@ -2676,7 +2676,7 @@ TICK_STAGES = (
     ("frame._check", "ops.frame", "_check"),
     ("frame.descriptors", "ops.frame", "descriptors"),
     ("frame.pack_params", "ops.frame", "pack_params"),
-    ("frame._launch", "ops.frame", "_launch"),
+    ("nvcc.launch", "ops.nvcc", "launch"),
     ("AudioSampleRateConversion._impl", "mix.src_audio",
      "AudioSampleRateConversion._impl"),
     ("SoundAnimator._impl", "mix.animator", "SoundAnimator._impl"),

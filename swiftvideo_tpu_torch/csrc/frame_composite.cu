@@ -962,7 +962,7 @@ extern "C" int sv_frame_composite(const void* params, int device, void* stream) 
 extern "C" int sv_frame_cells(const void* words, int launches, unsigned long long out0,
                               unsigned long long out1, unsigned long long out2,
                               unsigned long long src0, unsigned long long src1,
-                              unsigned long long src2, int device, void* stream, void* echo) {
+                              unsigned long long src2, void* echo, int device, void* stream) {
   const unsigned long long out[3] = {out0, out1, out2};
   const unsigned long long src[3] = {src0, src1, src2};
   int current = device;

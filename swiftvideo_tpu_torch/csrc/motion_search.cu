@@ -1071,6 +1071,19 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
              : cudaSuccess;
 }
 
+// Makes card `device` the calling thread's current device for its scope, and
+// then the one that was current again.
+struct DeviceScope {
+  int device, current;
+  explicit DeviceScope(int d) : device(d), current(d) {
+    cudaGetDevice(&current);
+    if (current != device) cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (current != device) cudaSetDevice(current);
+  }
+};
+
 }  // namespace
 
 // Full search of cur against ref (h x w u8, row-major, on the device) with 16x16
@@ -1081,11 +1094,13 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
 // most.  metric 0 = SAD: cost = cost2 [n_d * n_d]; 1 = SSD: cost = the per-axis
 // half [n_d], read as cy then cx.  mv_u8 [search / 2 * 2 + 1] maps a clamped
 // vector component to its u8 channel.  out: [h / 16 * (w / 16), 4] u8.  Launches
-// on `stream` and returns the launch's CUDA error code.
+// on `stream` of card `device` and returns the launch's CUDA error code; the
+// calling thread's current device is left as it was.
 extern "C" int sv_motion_search(const void* cur, const void* ref, int h, int w, int search,
                                 int metric, const void* plan, const void* groups, int n_groups,
                                 int n_d, const void* cost, const void* mv_u8, void* out,
-                                void* stream) {
+                                int device, void* stream) {
+  const DeviceScope scope(device);
   const auto* c = static_cast<const uint8_t*>(cur);
   const auto* r = static_cast<const uint8_t*>(ref);
   const auto* pl = static_cast<const int*>(plan);
@@ -1114,10 +1129,12 @@ extern "C" int sv_motion_search(const void* cur, const void* ref, int h, int w, 
 // (kSsdGroup) and per-axis cost table, candidates on the `stride` grid (2:
 // motion_coarse_kernel, 1: motion_ssd_kernel's coarse mode), the two-stage
 // minimum of motion.py::_me_mxu_program.  raw: [h / 16 * (w / 16), 2] int32
-// (mvx, mvy).  Launches on `stream` and returns the launch's CUDA error code.
+// (mvx, mvy).  Launches on `stream` of card `device` and returns the launch's
+// CUDA error code; the calling thread's current device is left as it was.
 extern "C" int sv_motion_coarse(const void* cur, const void* ref, int h, int w, int search,
                                 int stride, const void* plan, const void* groups, int n_groups,
-                                const void* axis, void* raw, void* stream) {
+                                const void* axis, void* raw, int device, void* stream) {
+  const DeviceScope scope(device);
   const auto* c = static_cast<const uint8_t*>(cur);
   const auto* r = static_cast<const uint8_t*>(ref);
   const auto* pl = static_cast<const int*>(plan);
@@ -1147,12 +1164,14 @@ extern "C" int sv_motion_coarse(const void* cur, const void* ref, int h, int w, 
 // ops/motion.py: plan) around raw: [n_mb, 2] int32 coarse vectors.  metric 0 =
 // SAD with cost = cost2 [n_d, n_d], 1 = SSD with cost = axis [n_d] (the
 // exhaustive kernels' tables, ops/motion.py: tables); mv_u8 [search / 2 * 2 +
-// 1] (ops/motion.py: tables).  out: [n_mb, 4] u8.  Launches on `stream`
-// and returns the launch's CUDA error code.
+// 1] (ops/motion.py: tables).  out: [n_mb, 4] u8.  Launches on `stream` of
+// card `device` and returns the launch's CUDA error code; the calling thread's
+// current device is left as it was.
 extern "C" int sv_motion_refine(const void* cur, const void* ref, int h, int w, int search,
                                 int refine, int metric, const void* plan, int n_mb,
                                 const void* raw, int n_d, const void* cost, const void* mv_u8,
-                                void* out, void* stream) {
+                                void* out, int device, void* stream) {
+  const DeviceScope scope(device);
   const int win = kBlock + 2 * refine;
   if (refine < 0 || h < win || w < win) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(uint32_t)) * kRefineWarps * refine_words(refine);

@@ -18,9 +18,10 @@ live on.
 
 The mixing wall's N-way mix (``mix_wall_s16_cuda``: gain, float32 sum over
 the streams, trunc, s16 clamp) is a hand-written kernel on the card,
-``csrc/audio_mix.cu``, built on first use with ``nvcc`` (ops/nvcc.py) and
-launched on the current stream; CPU tensors take its plain version,
-``mix_wall_s16_torch``.  ``launches`` counts the kernel's launches.
+``csrc/audio_mix.cu``, built on first use with ``nvcc`` and launched on
+the current stream by ops/nvcc.py (``SIGNATURES`` declares its C entry);
+CPU tensors take its plain version, ``mix_wall_s16_torch``.  ``launches``
+counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -171,23 +172,19 @@ def mix_s16_device_windowed(inputs: torch.Tensor, gains, starts, ends,
 SOURCE = nvcc.CSRC / "audio_mix.cu"
 KERNEL = "wall_audio_kernel"
 
+# the C entry of audio_mix.cu, {name: (restype, [argtypes])}
+SIGNATURES = {"sv_wall_audio": (ctypes.c_int, [ctypes.c_void_p] * 3
+                                + [ctypes.c_int] * 3 + [ctypes.c_void_p])}
+
 # launches of the wall's mix kernel since import; a plain integer so a run
 # can show that its mixes went through the kernel
 launches = 0
-_lib = None
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source/flags digest) and load the mix kernel's
-    library, kept for every later call."""
-    global _lib
-    if _lib is None:
-        lib = nvcc.load(SOURCE)
-        lib.sv_wall_audio.argtypes = ([ctypes.c_void_p] * 3
-                                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.sv_wall_audio.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    library."""
+    return nvcc.load(SOURCE, SIGNATURES)
 
 
 def wall_sum_f32(audio: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
@@ -260,14 +257,8 @@ def mix_wall_s16_cuda(audio: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
     out = torch.empty(samples, dtype=torch.int16, device=dev)
     if samples == 0:
         return out
-    # the current stream's handle without building a Stream object, as
-    # ops/frame.py takes it
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    err = build().sv_wall_audio(audio.data_ptr(), gains.data_ptr(),
-                                out.data_ptr(), streams, samples, dev.index,
-                                stream)
-    if err != 0:
-        raise RuntimeError(f"wall audio launch failed: CUDA error {err}")
+    nvcc.launch(build().sv_wall_audio, dev, audio.data_ptr(), gains.data_ptr(),
+                out.data_ptr(), streams, samples)
     launches += 1
     return out
 

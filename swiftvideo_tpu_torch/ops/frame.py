@@ -34,10 +34,10 @@ adds the bases and makes the launches (``cell_params`` gives the same
 words on the host).
 
 The kernels are built on first use with ``nvcc`` into ``build/`` inside
-this package (ops/nvcc.py: a plain C interface, loaded with ctypes) and
-launch on the current stream.  CPU tensors take the plain version
-(ops/composite.composite_stack_torch, composite_cells_torch); CUDA tensors
-take the kernel or raise.  ``launches`` counts kernel launches,
+this package and launched on the current stream, both by ops/nvcc.py
+(``SIGNATURES`` declares the C entries).  CPU tensors take the plain
+version (ops/composite.composite_stack_torch, composite_cells_torch); CUDA
+tensors take the kernel or raise.  ``launches`` counts kernel launches,
 ``kernel_launches`` the same by kernel name.
 """
 
@@ -98,29 +98,28 @@ _OUT_CODES = {PixelFormat.y420p: 0, PixelFormat.y422p: 0, PixelFormat.y444p: 0,
               PixelFormat.RGBA: 3, PixelFormat.BGRA: 4}
 
 
+_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+# the C entries of frame_composite.cu, {name: (restype, [argtypes])}
+SIGNATURES = {
+    "sv_frame_composite": (_I, [_P, _I, _P]),
+    "sv_frame_cells": (_I, [_P, _I] + [_U64] * 6 + [_P, _I, _P]),
+    "sv_frame_params_size": (_I, []),
+    "sv_frame_capacity": (_I, []),
+}
+
+
+def _check_layout(lib: ctypes.CDLL) -> None:
+    layout = (lib.sv_frame_params_size(), lib.sv_frame_capacity())
+    if layout != (_PARAMS.itemsize, CAPACITY):
+        raise RuntimeError(f"frame_composite.cu packs {layout} (bytes, "
+                           f"sources), ops/frame.py "
+                           f"{(_PARAMS.itemsize, CAPACITY)}")
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source/flags digest) and load the kernel library;
     raises if its parameter layout is not this module's."""
-    lib = nvcc.load(SOURCE)
-    fn = lib.sv_frame_composite
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.sv_frame_cells.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                                       + [ctypes.c_uint64] * 6
-                                       + [ctypes.c_int, ctypes.c_void_p,
-                                          ctypes.c_void_p])
-        lib.sv_frame_cells.restype = ctypes.c_int
-        for info in (lib.sv_frame_params_size, lib.sv_frame_capacity):
-            info.argtypes = []
-            info.restype = ctypes.c_int
-        layout = (lib.sv_frame_params_size(), lib.sv_frame_capacity())
-        if layout != (_PARAMS.itemsize, CAPACITY):
-            fn.argtypes = None
-            raise RuntimeError(f"frame_composite.cu packs {layout} (bytes, "
-                               f"sources), ops/frame.py "
-                               f"{(_PARAMS.itemsize, CAPACITY)}")
-    return lib
+    return nvcc.load(SOURCE, SIGNATURES, _check_layout)
 
 
 def _source_shapes_ok(planes, fmt: PixelFormat) -> bool:
@@ -501,40 +500,17 @@ def cell_params(cell_size: Tuple[int, int], grid: Tuple[int, int], planes,
                 .params(outs, planes))
 
 
-def _launch(lib, params: np.ndarray, index: int, stream: int,
-            kernel: str) -> None:
-    global launches
-    span = spans.ON and spans.begin("frame.launch")
-    err = lib.sv_frame_composite(params.ctypes.data, index, stream)
-    if span:
-        spans.end(span)
-    if err != 0:
-        raise RuntimeError(f"frame_composite launch failed: CUDA error {err}")
-    launches += 1
-    kernel_launches[kernel] += 1
-
-
 def _launch_cells(plan: CellPlan, outs, planes, dev: torch.device,
                   echo: Optional[np.ndarray] = None) -> None:
     """Make ``plan``'s launches onto the canvas planes ``outs`` from the
     batch ``planes`` with one C call; ``echo`` ([launches, words] u64)
     receives each launch's words as launched."""
     global launches
-    lib = build()
-    # the current stream's handle, as torch.cuda.current_stream(dev)
-    # .cuda_stream gives it, without building a Stream object (5 us a call
-    # on the card's host)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     bases = [p.data_ptr() for p in planes] + [0] * (3 - len(planes))
-    span = spans.ON and spans.begin("frame.launch")
-    err = lib.sv_frame_cells(plan.ptr, len(plan.words), outs[0].data_ptr(),
-                             outs[1].data_ptr(), outs[2].data_ptr(), *bases,
-                             dev.index, stream,
-                             None if echo is None else echo.ctypes.data)
-    if span:
-        spans.end(span)
-    if err != 0:
-        raise RuntimeError(f"frame_composite launch failed: CUDA error {err}")
+    nvcc.launch(build().sv_frame_cells, dev, plan.ptr, len(plan.words),
+                outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+                *bases, None if echo is None else echo.ctypes.data,
+                span="frame.launch")
     launches += len(plan.words)
     kernel_launches[YUV_KERNEL] += len(plan.words)
 
@@ -549,6 +525,7 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
     frame (packed 4:2:2 targets go through ``registry.composite_frame``).
     Returns the target's u8 planes on the sources' device.  ``device``
     names it when there are no sources."""
+    global launches
     if out_fmt not in KERNEL_TARGETS:
         raise ValueError(f"frame kernel writes no {out_fmt} target")
     dev = _check(sources, target, device)
@@ -570,12 +547,13 @@ def composite_frame_cuda(size: Tuple[int, int], sources,
     kernel = RGBA_KERNEL if out_fmt in (PixelFormat.RGBA,
                                         PixelFormat.BGRA) else YUV_KERNEL
     table = descriptors(size, sources, out_fmt)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for a, b in launch_plan(len(sources)):
         params = pack_params(size, out_fmt, outs, table[a:b],
                              a > 0 or target is not None)
-        _launch(lib, params, index, stream, kernel)
+        nvcc.launch(lib.sv_frame_composite, dev, params.ctypes.data,
+                    span="frame.launch")
+        launches += 1
+        kernel_launches[kernel] += 1
     return outs
 
 
@@ -593,8 +571,7 @@ def _check_batch(planes, fmt: PixelFormat) -> Tuple[torch.device, int]:
 
 
 def composite_cells_cuda(cell_size: Tuple[int, int], planes,
-                         fmt: PixelFormat, uniforms,
-                         out_fmt: PixelFormat = PixelFormat.y420p, *,
+                         fmt: PixelFormat, uniforms, *,
                          grid: Optional[Tuple[int, int]] = None
                          ) -> List[torch.Tensor]:
     """Composite frame i of a batch — ``planes``, the planes of ``fmt``
@@ -611,11 +588,8 @@ def composite_cells_cuda(cell_size: Tuple[int, int], planes,
     launch a ``CAPACITY`` cells onto its band of cell rows, chained where a
     band shares a row with the launch before (``cell_launch_plan``), all
     made by one C call from the layout's kept plan (``cell_plan``); CPU
-    tensors take the plain per-cell fold (``composite_cells_torch``).
-    Only y420p canvases are written: another ``out_fmt`` raises."""
+    tensors take the plain per-cell fold (``composite_cells_torch``)."""
     span = spans.ON and spans.begin("frame.cells")
-    if out_fmt != PixelFormat.y420p:
-        raise ValueError(f"a cell grid needs a y420p target, not {out_fmt}")
     planes = list(planes)
     plan = cell_plan(cell_size, grid, planes, fmt, uniforms)
     dev = plan.device

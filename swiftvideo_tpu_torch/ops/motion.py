@@ -26,8 +26,9 @@ others one step apart.  ``me_fullsearch`` launches a kernel of
 ``motion_ssd_kernel`` replace the TPU kernels
 ``motion.py::_me_pallas_program`` and ``::_me_ssd_pallas_program``) and
 takes the plain version for CPU tensors.  ``launches`` counts kernel
-launches, ``route_launches`` the launches of each kernel; while the
-recorder (``core/spans.py``) is on, each launch's ctypes call is a
+launches, ``route_launches`` the launches of each kernel; each launch is
+made by ``nvcc.launch`` (``SIGNATURES`` declares the C entries), and while
+the recorder (``core/spans.py``) is on its ctypes call is a
 ``motion.launch`` span.
 
 ``me_fullsearch_pyramid`` is the two-stage search of the JAX package's
@@ -59,7 +60,6 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..core import spans
 from . import nvcc
 
 SOURCE = nvcc.CSRC / "motion_search.cu"
@@ -439,25 +439,31 @@ def me_fullsearch_torch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
                         torch.full_like(r_ch, 255)], dim=-1)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entries of motion_search.cu, {name: (restype, [argtypes])}
+SIGNATURES = {
+    "sv_motion_search": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
+                              _P, _I, _P]),
+    "sv_motion_coarse": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                              _P]),
+    "sv_motion_refine": (_I, [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
+                              _P, _P, _I, _P]),
+    "sv_motion_geometry": (_I, [ctypes.POINTER(_I), _I]),
+}
+
+
+def _check_geometry(lib: ctypes.CDLL) -> None:
+    buf = (_I * 32)()
+    got = buf[:lib.sv_motion_geometry(buf, len(buf))]
+    if got != list(GEOMETRY.values()):
+        raise RuntimeError(f"motion_search.cu has the geometry {got}, "
+                           f"ops/motion.py {GEOMETRY}")
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source/flags digest) and load the kernel library;
     raises if its geometry is not this module's ``GEOMETRY``."""
-    lib = nvcc.load(SOURCE)
-    fn = lib.sv_motion_search
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, I, I, I, P, P, I, I, P, P, P, P]
-        fn.restype = I
-        info = lib.sv_motion_geometry
-        info.argtypes = [ctypes.POINTER(I), I]
-        info.restype = I
-        buf = (I * 32)()
-        got = buf[:info(buf, len(buf))]
-        if got != list(GEOMETRY.values()):
-            fn.argtypes = None
-            raise RuntimeError(f"motion_search.cu has the geometry {got}, "
-                               f"ops/motion.py {GEOMETRY}")
-    return lib
+    return nvcc.load(SOURCE, SIGNATURES, _check_geometry)
 
 
 @lru_cache(maxsize=16)
@@ -665,18 +671,10 @@ def me_fullsearch(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
     cost, lut = _device_tables(block, search, metric, dev)
     pl, gr = _device_plan(h, w, search, GROUP[metric], dev)
     n_d = tables(block, search)[1].shape[0]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        span = spans.ON and spans.begin("motion.launch")
-        err = lib.sv_motion_search(cur.data_ptr(), ref.data_ptr(), h, w, search,
-                                   METRICS.index(metric), pl.data_ptr(),
-                                   gr.data_ptr(), gr.shape[0], n_d,
-                                   cost.data_ptr(), lut.data_ptr(),
-                                   out.data_ptr(), stream)
-        if span:
-            spans.end(span)
-    if err != 0:
-        raise RuntimeError(f"{KERNELS[metric]} launch failed: CUDA error {err}")
+    nvcc.launch(lib.sv_motion_search, dev, cur.data_ptr(), ref.data_ptr(), h,
+                w, search, METRICS.index(metric), pl.data_ptr(), gr.data_ptr(),
+                gr.shape[0], n_d, cost.data_ptr(), lut.data_ptr(),
+                out.data_ptr(), span="motion.launch")
     launches += 1
     route_launches[KERNELS[metric]] += 1
     return out
@@ -701,24 +699,11 @@ def me_coarse(cur: torch.Tensor, ref: torch.Tensor, block: int = 16,
     if raw.numel() == 0:
         return raw
     lib = build()
-    fn = lib.sv_motion_coarse
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, I, I, I, P, P, I, P, P, P]
-        fn.restype = I
     axis, _lut = _device_tables(block, search, "ssd", dev)
     pl, gr = _device_plan(h, w, search, GROUP["ssd"], dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        span = spans.ON and spans.begin("motion.launch")
-        err = fn(cur.data_ptr(), ref.data_ptr(), h, w, search, stride,
-                 pl.data_ptr(), gr.data_ptr(), gr.shape[0], axis.data_ptr(),
-                 raw.data_ptr(), stream)
-        if span:
-            spans.end(span)
-    if err != 0:
-        raise RuntimeError(f"{COARSE_KERNELS[stride]} launch failed: CUDA "
-                           f"error {err}")
+    nvcc.launch(lib.sv_motion_coarse, dev, cur.data_ptr(), ref.data_ptr(), h,
+                w, search, stride, pl.data_ptr(), gr.data_ptr(), gr.shape[0],
+                axis.data_ptr(), raw.data_ptr(), span="motion.launch")
     launches += 1
     route_launches[COARSE_KERNELS[stride]] += 1
     return raw
@@ -741,26 +726,14 @@ def me_refine(cur: torch.Tensor, ref: torch.Tensor, raw: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = build()
-    fn = lib.sv_motion_refine
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, I, I, I, I, I, P, I, P, I, P, P, P, P]
-        fn.restype = I
     cost, lut = _device_tables(block, search, metric, dev)
     pl, _gr = _device_plan(h, w, search, GROUP["ssd"], dev)
     n_d = tables(block, search)[2].shape[0]
     raw = raw.to(torch.int32).contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        span = spans.ON and spans.begin("motion.launch")
-        err = fn(cur.data_ptr(), ref.data_ptr(), h, w, search, refine,
-                 METRICS.index(metric), pl.data_ptr(), pl.shape[0],
-                 raw.data_ptr(), n_d, cost.data_ptr(), lut.data_ptr(),
-                 out.data_ptr(), stream)
-        if span:
-            spans.end(span)
-    if err != 0:
-        raise RuntimeError(f"{REFINE_KERNEL} launch failed: CUDA error {err}")
+    nvcc.launch(lib.sv_motion_refine, dev, cur.data_ptr(), ref.data_ptr(), h,
+                w, search, refine, METRICS.index(metric), pl.data_ptr(),
+                pl.shape[0], raw.data_ptr(), n_d, cost.data_ptr(),
+                lut.data_ptr(), out.data_ptr(), span="motion.launch")
     launches += 1
     route_launches[REFINE_KERNEL] += 1
     return out

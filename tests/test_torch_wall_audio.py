@@ -137,7 +137,7 @@ def card(monkeypatch):
     return lib
 
 
-def _cells(cell_size, planes, fmt, uniforms, out_fmt=None, *, grid=None):
+def _cells(cell_size, planes, fmt, uniforms, *, grid=None):
     """The cell launch's stand-in: blank canvas planes of the grid."""
     (w, h), (cols, rows) = cell_size, grid
     return [torch.zeros((rows * ph, cols * pw), dtype=torch.uint8)

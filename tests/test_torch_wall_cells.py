@@ -155,8 +155,6 @@ def test_cell_grid_needs_a_y420p_target(out_fmt):
     rows = frame.cell_descriptors(cell, planes, Y420P, unis)
     with pytest.raises(ValueError, match="y420p"):
         frame.pack_params(size, out_fmt, outs, rows, False, cell=cell)
-    with pytest.raises(ValueError, match="y420p"):
-        frame.composite_cells_cuda(cell, planes, Y420P, unis, out_fmt)
 
 
 @pytest.mark.parametrize("cell,size", [((34, 18), (34, 27)),
