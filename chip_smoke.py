@@ -578,7 +578,7 @@ def batch_phases(dev, smi, rng):
     """Phases 12-15: the batch paths of configs 4, 2 and 5 through the
     port's entry points on ``dev``.  Returns the kernels line's rows of
     K1 on the ladder, on one wall cell and on the wall tick."""
-    from swiftvideo_tpu_torch.core import TimePoint
+    from swiftvideo_tpu_torch.core import TimePoint, spans
     from swiftvideo_tpu_torch.media import AudioFormat, AudioSample, PixelFormat
     from swiftvideo_tpu_torch.mix import AudioSampleRateConversion
     from swiftvideo_tpu_torch.ops import (audio, composite, frame, matscale,
@@ -796,7 +796,10 @@ def batch_phases(dev, smi, rng):
         return out, (frame.launches, matscale.calls, composite.calls,
                      sum(assembly.values()), audio.launches)
 
-    tick_launches = len(frame.launch_plan(n))
+    # the kernel launches of a tick as the C call counts them: its two
+    # FrameParams of 32 axis-aligned cells as one launch of the row kernel
+    # (the profiler's count of the canvas launch is checked below)
+    tick_launches = 1
     plain_tiles = {}
 
     def plain_tile(k, s, uni=None):
@@ -860,7 +863,7 @@ def batch_phases(dev, smi, rng):
     for k in range(WALL_RING):
         out60, counts60 = counted(lambda: wall60.step(
             *ring60[k], audio_t[:n60], gains_t[:n60]))
-        if counts60 != (len(frame.launch_plan(n60)), 0, 0, 0, 1):
+        if counts60 != (tick_launches, 0, 0, 0, 1):
             fail(f"wall of {n60}, ring batch {k}: (K1 launches, product "
                  f"calls, plain composites, tile-assembly calls, audio "
                  f"kernel launches) {counts60}")
@@ -928,6 +931,44 @@ def batch_phases(dev, smi, rng):
              f"{stack_err}, grid_sample err {lib_err} vs plain")
     stack_ms = timed_ms(stack_call)
     stack_dev, stack_acts = device_total_ms(stack_call)
+    # the same launch on the tile kernel (the kept plan with its mode words
+    # cleared), a comparison only: bit-exact with the row kernel's canvas
+    tile_plan = frame.cell_plan((tw, th), wall.grid_wh, [ys, us, vs], y420p,
+                                stack_unis).on_tiles()
+
+    def tile_call(batch=None):
+        batch = list(batch or next_stack())
+        outs = [torch.empty(*s, dtype=torch.uint8, device=dev)
+                for s in tile_plan.out_shapes]
+        frame._launch_cells(tile_plan, outs, batch, dev)
+        return outs
+
+    def launched(fn):
+        """fn's result and the (kernel launches, row-kernel launches) of
+        the cell wrapper that the C call reported."""
+        spans.start()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            rec = spans.stop()
+        return out, (rec.counters.get("frame.cell_launches", 0),
+                     rec.counters.get("frame.cell_row_launches", 0))
+
+    _, stack_made = launched(lambda: stack_call(ring[0]))
+    tile_out, tile_made = launched(lambda: tile_call(ring[0]))
+    tile_err = max_err(tile_out, stack)[0]
+    if (tile_err or stack_made != (tick_launches, tick_launches)
+            or tile_made != (2, 0)
+            or not stack_made[0] - 1 < stack_acts <= stack_made[0]):
+        fail(f"the wall's canvas launch: tile kernel vs row kernel err "
+             f"{tile_err}, (launches, row-kernel launches) counted "
+             f"{stack_made} (want {(tick_launches, tick_launches)}) and on "
+             f"the tile kernel {tile_made} (want (2, 0)), the profiler's "
+             f"{stack_acts} device activities a call (want the counted "
+             f"{stack_made[0]}, less what a profile lost)")
+    tile_ms = timed_ms(tile_call)
+    tile_dev, tile_acts = device_total_ms(tile_call)
     # the tick's host work: the cell wrapper, and its plan lookup (the
     # check of the batch against the kept plan; a fresh numpy build of the
     # table beside it, the table each tick built before layouts were kept)
@@ -978,7 +1019,10 @@ def batch_phases(dev, smi, rng):
           f"identity cells, {stack_acts:.0f} launches): call {stack_ms:.4f} "
           f"ms, device "
           f"{stack_dev:.4f} ms, bound {stack_bms:.6f} ms ({stack_by}), share "
-          f"{stack_bms / stack_dev:.1%}, plain {stack_plain_ms:.4f} ms, "
+          f"{stack_bms / stack_dev:.1%}; on the tile kernel ({tile_acts:.0f} "
+          f"launches, bit-exact): call {tile_ms:.4f} ms, device "
+          f"{tile_dev:.4f} ms, share {stack_bms / tile_dev:.1%}; plain "
+          f"{stack_plain_ms:.4f} ms, "
           f"grid_sample [{n}, 1, {H}, {W}] (library yardstick, err {lib_err}, "
           f"{lib_at1} px at 1 LSB): call {stack_lib_ms:.4f} ms, device "
           f"{stack_lib_dev:.4f} ms ({stack_lib_acts:.0f} activities) | "
@@ -990,7 +1034,7 @@ def batch_phases(dev, smi, rng):
     tick_row = {"name": f"frame_composite (K1: wall tick's canvas launch "
                         f"alone, {n} identity cells {W}x{H} -> {tw}x{th} "
                         f"straight onto the {WALL_CANVAS[0]}x"
-                        f"{WALL_CANVAS[1]} canvas, {tick_launches} launches; "
+                        f"{WALL_CANVAS[1]} canvas, {stack_made[0]} launches; "
                         f"launches: the plan tick's)",
                 "route": "cuda",
                 "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
@@ -999,7 +1043,7 @@ def batch_phases(dev, smi, rng):
                 "ms": stack_ms,
                 "device_ms": stack_dev, "plain_ms": stack_plain_ms,
                 "bound_ms": stack_bms, "bound_by": stack_by,
-                "library_ms": stack_lib_ms}
+                "library_ms": stack_lib_ms, "tile_kernel_device_ms": tile_dev}
 
     # one cell alone (the route before the cell grid: one launch a cell),
     # for the kernels line
@@ -1916,8 +1960,9 @@ def free_port() -> int:
 def wall_ingest_phase(dev, smi):
     """Phase 21: 64 RTMP publishers into the port's server; each session's
     latest sample seeds a 1920x1080 stream made on the card; one per-cell
-    wall tick and one plan tick, each one cell launch per 32 streams
-    straight onto the canvas, no tile assembled.
+    wall tick and one plan tick, each straight onto the canvas with the
+    kept plan's launches (one of the row kernel for 64 streams), no tile
+    assembled.
     Returns the kernels-line row of K1 on one RTMP-fed cell."""
     import asyncio
     from swiftvideo_tpu_torch.core import EventBox, StepClock, TimePoint, Tx
@@ -2008,7 +2053,9 @@ def wall_ingest_phase(dev, smi):
     def tick_plan():
         return wall.step(ys, us, vs, audio_t)
 
-    tick_launches = len(frame.launch_plan(n))
+    # the C call's count: the tick's two FrameParams of 32 identity cells as
+    # one launch of the row kernel
+    tick_launches = 1
     torch.cuda.synchronize()
     for kern in frame.kernel_launches:
         frame.kernel_launches[kern] = 0

@@ -71,7 +71,9 @@ to the card and their bytes), ``video_mixer.uniform_lookups`` and
 ``video_mixer.uniform_misses`` (the video mixer's kept uniforms, and the
 lookups that had to compute them), ``frame.cell_plan_lookups`` and
 ``frame.cell_plan_misses`` (the cell wrapper's kept plans, one lookup a
-call, and the lookups that built a plan), ``motion.searches`` (the
+call, and the lookups that built a plan), ``frame.cell_launches`` and
+``frame.cell_row_launches`` (the cell wrapper's kernel launches, and those
+that took the frame kernel's row kernel), ``motion.searches`` (the
 registry's motion searches, one a ``motion.search`` span),
 ``wall.audio_mixes`` and ``wall.audio_kernel_mixes`` (the wall's audio
 mixes, one a ``wall.audio`` span, and those that launched the wall's mix

@@ -43,14 +43,16 @@
 //   once; the re-reads of a 1:1 overlay or an upscale hit L1, which on this card is
 //   the same SRAM as shared memory.  Copying each tile's footprint into shared
 //   memory with cp.async first measured slower on every case, the 2x upscale
-//   included (PERF.md), and is not done.
+//   included (PERF.md), and is not done in the tile kernel.  Cell launches of
+//   axis-aligned planar sources take the row kernel instead (below).
 // * Fewer instructions per pixel.  For an axis-aligned source the row side of the
 //   maps (border, element and texture y, the row taps and their offsets) is the same
 //   along a run and is computed once per run.  An RGBA texel is one 32-bit load and
 //   an nv12 / nv21 pair one 16-bit load.
-// * TMA is not used: the planes are new allocations every tick, so a tensor map
+// * No TMA tensor map: the planes are new allocations every tick, so a tensor map
 //   would have to be encoded on the host for every plane of every call, which is the
-//   host cost this form removes.
+//   host cost this form removes.  The row kernel's 1-D bulk copies take plain
+//   addresses and need none.
 // * Cell grid (FrameParams cell_h, cell_w; y420p targets only).  The target is a
 //   grid of rows and columns of cells of cell_h x cell_w pixels (chroma cell_h / 2 x
 //   cell_w / 2; its height and width are multiples of the cell's, ops/frame.py
@@ -70,6 +72,45 @@
 //   cell_w = 0: no cell grid.  A layout's launches are kept on the host with
 //   offsets in their pointer fields (ops/frame.py CellPlan); sv_frame_cells adds
 //   the planes' base addresses and makes them all in one call from Python.
+// * The row kernel (frame_composite_kernel_rows): a cell launch whose sources are all
+//   axis-aligned (the device's own axis_aligned test, mirrored on the host), each
+//   inside its own cell in band order, which ops/frame.py cell_mode marks kRows in
+//   FrameParams mode once per kept plan; of those the host entry takes the launches
+//   whose sources are planar with rows that fit a stage and whose cells fit its
+//   tables (takes_rows, row_fits), and gives every other to the tile kernel.  The
+//   entry reports the launches it made.  Its bound is the same bytes:
+//   the 32-byte sectors that hold a tap, and the canvas.  At the wall's 8:1 (1080p
+//   onto 240 x 136) an output row reads source rows floor(7.94 y + 3.47) and the one
+//   after, and each column reads columns 8 x + 3 and 8 x + 4: two rows in eight,
+//   every sector of them, 53.2 MB a 64-stream tick.  The tile kernel fetches those
+//   as dependent one-byte gathers, a few in flight a thread, at a third of the
+//   bound (~50 us a tick on an H100, PERF.md).  Staging pays here where it did not
+//   at 2:1 and 1:1: there L1 already served each texel about once, while at 8:1 the
+//   cost is device-memory latency on sparse rows, which only many wide copies in
+//   flight hide.  A block takes one unit (some rows of one cell's luma plane, or of
+//   both its chroma planes at once: the two share every map):
+//   - it copies the unit's source descriptor into shared memory, a word a thread;
+//   - warp 0 tabulates each row's map (run_rows, axis_taps: state, tap rows,
+//     weight, where its staged rows lie) and bounds the staged columns by the taps
+//     of the box's first and last columns (taps are monotone along an axis-aligned
+//     row), then streams each group of rows' tap rows through a ring of kStages
+//     stages in shared memory with 1-D bulk copies (cp.async.bulk onto the stage's
+//     mbarrier: a plain address, so no tensor map; one copy for both tap rows
+//     where the span is the whole row), kStages - 1 groups ahead; meanwhile the
+//     other warps tabulate each column's map (pixel_maps, axis_taps: state, tap
+//     columns, weight);
+//   - every thread then folds its own columns of each landed group from shared
+//     memory, with fold_yuv<true>'s arithmetic operation for operation (the maps by
+//     the same functions, so the same values), into an output group stored with
+//     16-byte words a group behind.
+//   A unit's rows are the fewest that let every block of the launch be resident at
+//   once, a chroma unit's kChromaRowsPct of a luma unit's (chroma rows stream more
+//   slowly, and the slowest unit sets the launch's end): the setup of a unit (the
+//   descriptor, the maps, the first copy's latency) is paid once a launch, where
+//   more and smaller units paid it again in every wave.  For the same reason
+//   sv_frame_cells merges up to kMerge unchained launches it takes into one launch of
+//   the row kernel (12.4 KB of parameters): the wall's tick is one launch of 512
+//   units, ~30 us on an H100 (PERF.md).
 //
 // Numerics follow golden operation for operation, and this file is compiled with
 // --fmad=false so no multiply-add pair is contracted into an FMA: the mask tests at
@@ -103,6 +144,8 @@ enum SrcFmt : int { kPlanar = 0, kNv12 = 1, kNv21 = 2, kRgba = 3, kBgra = 4 };
 enum OutFmt : int { kOutPlanar = 0, kOutNv12 = 1, kOutNv21 = 2, kOutRgba = 3, kOutBgra = 4 };
 // the grid a tile lies on: a yuv target's luma or chroma grid, or an RGBA target
 enum Grid : int { kLuma = 0, kChroma = 1, kRgbaGrid = 2 };
+// which kernel takes a yuv launch (FrameParams mode)
+enum Mode : int { kTiles = 0, kRows = 1 };
 
 // One source of the frame.  Layout shared with ops/frame.py (_DESC).
 struct SrcDesc {
@@ -123,7 +166,7 @@ struct FrameParams {
   int chained;                // 0: start from the cleared frame; 1: from the outputs
   int ch, cw;                 // a yuv target's chroma grid (rows, columns)
   int cell_h, cell_w;         // a y420p target's cell grid on its luma grid; 0, 0: none
-  int pad;
+  int mode;                   // kTiles, or kRows: the row kernel (ops/frame.py CellPlan)
   SrcDesc src[kCapacity];
 };
 static_assert(sizeof(FrameParams) == 64 + kCapacity * 192,
@@ -893,6 +936,451 @@ __global__ void __launch_bounds__(kThreads)
   composite_tiles<RgbaRun>(p, true);
 }
 
+// ---- The row kernel: cell launches whose sources are all planar and axis-aligned
+// (FrameParams mode kRows; the file's note).
+
+constexpr int kRowThreads = 256;
+constexpr int kStages = 3;          // ring of staged row groups, kStages - 1 in flight
+constexpr int kStageBytes = 8192;   // a group: the two tap rows of each plane of its rows
+constexpr int kOutBytes = 2560;     // a group's output rows, each at its store alignment
+constexpr int kMaxChunkRows = 64;   // output rows a unit takes at most (two a lane of warp 0)
+constexpr int kChromaRowsPct = 80;  // a chroma unit's rows, in % of a luma unit's (PERF.md)
+constexpr int kMaxCellW = 2048;     // cell columns on the luma grid
+
+// Whether a stage holds the tap rows of a unit's rows of a source `tw` bytes wide on
+// `nk` planes (1: luma, 2: Cb and Cr): a row and plane stages its two tap rows in two
+// slots, each the staged span of columns from the 16-byte boundary at or before its
+// first to the one after its last, at most ((tw + 15) & ~15) + 16 bytes.  So a luma
+// row up to kStageBytes / 2 - 16 bytes wide, a chroma row up to kStageBytes / 4 - 16.
+__host__ __device__ constexpr bool row_fits(int tw, int nk) {
+  return tw > 0 && 2 * nk * (((tw + 15) & ~15) + 16) <= kStageBytes;
+}
+static_assert(row_fits(kStageBytes / 2 - 16, 1) && !row_fits(kStageBytes / 2 - 15, 1) &&
+                  row_fits(kStageBytes / 4 - 16, 2) && !row_fits(kStageBytes / 4 - 15, 2),
+              "a luma row up to 4080 bytes, a chroma row up to 2032");
+
+// golden's u8 -> float (the tile kernel's table, v / 255 correctly rounded), in
+// arithmetic: v exactly, its product with the rounded reciprocal, corrected once by
+// the product's residual.  Exact for every byte (tests/test_torch_wall_cells.py
+// checks all 256 in exact arithmetic); it spares the table's bank conflicts on
+// random bytes.
+__device__ __forceinline__ float u8f(uint32_t v) {
+  const float f = __uint_as_float(0x4b000000u | v) - 8388608.0f;
+  const float r = 0x1.010102p-8f;  // 1 / 255 rounded to float
+  const float q = __fmul_rn(f, r);
+  return __fmaf_rn(__fmaf_rn(-q, 255.0f, f), r, q);
+}
+
+// One column of a cell on one grid: its state (0: no write, 1: the fill, 2: the
+// sample), tap columns c0 and c0 + d1, and the weight fx of the second.
+struct ColMap {
+  float fx;
+  uint16_t c0;
+  uint8_t d1, state;
+};
+static_assert(sizeof(ColMap) == 8, "a column's map is one 8-byte load");
+
+// One output row of a unit: its state, tap rows r0 and r1 with the weight fy of the
+// second, where tap row t of the unit's plane k holds column c in shared memory
+// (off[k][t] + c), and the store alignment of its canvas row in each plane.
+struct RowMap {
+  int off[2][2];
+  int r[2];
+  float fy;
+  int state;
+  int lead[2];
+};
+
+// The shared memory of a block: the ring, two output groups, the unit's source, the
+// ring's barriers and eight words, the maps.  Four blocks of 240-column cells share
+// an SM (64 registers a thread, __launch_bounds__).
+__host__ __device__ constexpr int row_smem_bytes(int cell_w) {
+  return kStages * kStageBytes + 2 * kOutBytes + static_cast<int>(sizeof(SrcDesc)) + kStages * 8 +
+         32 + kMaxChunkRows * static_cast<int>(sizeof(RowMap)) +
+         cell_w * static_cast<int>(sizeof(ColMap));
+}
+
+__device__ __forceinline__ uint32_t smem_at(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// The producer's arrival on a group's barrier, with the bytes its copies will bring.
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of the given parity to complete.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// Orders this thread's earlier shared-memory accesses before its next bulk copies.
+__device__ __forceinline__ void async_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// One 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// device memory into shared memory, completing on `bar`: a plain address, no tensor
+// map.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A kRows launch's mode word: the kind (bits 0-7), the rows of a unit (bits 8-15, set
+// by the host entry, launch) and the band's cell of source 0 (bits 16-31, set by
+// ops/frame.py cell_mode): source j lies in cell first + j of the band, the cells in
+// row-major order.
+__host__ __device__ __forceinline__ int mode_rows(int mode) { return (mode >> 8) & 255; }
+__device__ __forceinline__ int mode_first(int mode) { return mode >> 16; }
+
+// The block's unit of work: rows [y0, y0 + rows) of the launch's cell `cell` (in
+// row-major order over the band) on one grid (the luma plane, or both chroma
+// planes), gh x gw pixels a plane at (Y0, X0) of the band.  Luma units come first,
+// then the chroma units, cell by cell.
+struct RowUnit {
+  int chroma, cell, y0, rows, gh, gw, Y0, X0;
+};
+
+__host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The rows of a chroma unit where a luma unit holds `chunk`.
+__host__ __device__ __forceinline__ int chroma_rows(int chunk) {
+  return max(1, ceil_div(chunk * kChromaRowsPct, 100));
+}
+
+__device__ __forceinline__ RowUnit row_unit(const FrameParams& p, int u) {
+  const int chunk = mode_rows(p.mode);
+  const int across = p.w / p.cell_w;
+  const int lc = ceil_div(p.cell_h, chunk), cc = ceil_div(p.cell_h / 2, chroma_rows(chunk));
+  const int luma = across * (p.h / p.cell_h) * lc;
+  RowUnit r;
+  int k;
+  r.chroma = u >= luma;
+  if (!r.chroma) {
+    r.cell = u / lc;
+    k = u - r.cell * lc;
+  } else {
+    u -= luma;
+    r.cell = u / cc;
+    k = u - r.cell * cc;
+  }
+  r.gh = r.chroma ? p.cell_h / 2 : p.cell_h;
+  r.gw = r.chroma ? p.cell_w / 2 : p.cell_w;
+  const int rows = r.chroma ? chroma_rows(chunk) : chunk;
+  r.y0 = k * rows;
+  r.rows = min(rows, r.gh - r.y0);
+  r.Y0 = (r.cell / across) * r.gh;
+  r.X0 = (r.cell % across) * r.gw;
+  return r;
+}
+
+// The column side of a source's maps at column lx of a unit (pixel_maps at the
+// unit's first row: its terms from the row, u[1] py, u[13] py and u[7] tx_y, are
+// products with an exact zero, as in every row): the column's state and taps.
+__device__ __forceinline__ ColMap col_map(const float* u, const int* box, const RowUnit& un,
+                                          const Maps& m0, float u1py, float u3py, float u13py,
+                                          float u15py, int tw, int lx) {
+  Maps m = m0;
+  bool m_tx = false, m_uv = false;
+  const bool in = pixel_maps<true>(u, box, un.X0 + lx, ndc(lx, un.gw), u1py, u3py, u13py, u15py, m,
+                                   m_tx, m_uv);
+  const AxisTaps a = axis_taps(m.uv_x, tw);
+  ColMap c;
+  c.fx = a.f;
+  c.c0 = static_cast<uint16_t>(a.i0);
+  c.d1 = static_cast<uint8_t>(a.i1 - a.i0);
+  c.state = !in ? 0 : (m_tx && m_uv ? 2 : 1);
+  return c;
+}
+
+// The body of the row kernel for unit `unit` of launch p (row_unit).  The unit's one
+// source (mode_first), if its box meets the unit: warp 0 tabulates the maps of the
+// unit's rows and the columns its taps can reach (those of the box's first and last
+// columns: the taps are monotone along an axis-aligned row), then streams the tap
+// rows of each group of rows into the ring, a bulk copy a lane, kStages - 1 groups
+// ahead, while the other warps tabulate the maps of the unit's columns.  Every
+// thread then folds its own columns of each group that has landed, from shared
+// memory, into the output group, stored with 16-byte words a group behind.
+__device__ __forceinline__ void composite_rows(const FrameParams& p, int unit) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* ring = smem;
+  uint8_t* outg = ring + kStages * kStageBytes;
+  SrcDesc* sd = reinterpret_cast<SrcDesc*>(outg + 2 * kOutBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sd + 1);
+  int* shape = reinterpret_cast<int*>(bars + kStages);  // c_lo, c_hi, slot, group, pair
+  RowMap* rmap = reinterpret_cast<RowMap*>(shape + 8);
+  ColMap* cols = reinterpret_cast<ColMap*>(rmap + kMaxChunkRows);
+  const RowUnit un = row_unit(p, unit);
+  const int tid = threadIdx.x;
+  const int grid = un.chroma ? kChroma : kLuma;
+  const int nk = un.chroma ? 2 : 1;  // planes of the unit: Y, or Cb and Cr
+  uint8_t* out[2] = {reinterpret_cast<uint8_t*>(p.out[un.chroma ? 1 : 0]),
+                     reinterpret_cast<uint8_t*>(p.out[un.chroma ? 2 : 0])};
+  const int ostride = un.chroma ? p.cw : p.w;
+  const int clear = un.chroma ? 128 : 0;
+  const int pitch = ((un.gw + 15) & ~15) + 16;  // an output row, at its store alignment
+  const uint32_t ring_at = smem_at(ring), bars_at = smem_at(bars);
+
+  // the unit's source into shared memory, a word a thread: the parameters' reads
+  // all in flight at once
+  int s = un.cell - mode_first(p.mode);
+  if (s >= min(p.n, kCapacity)) s = -1;
+  constexpr int kDescWords = static_cast<int>(sizeof(SrcDesc) / 4);
+  if (tid < kDescWords)
+    reinterpret_cast<uint32_t*>(sd)[tid] = reinterpret_cast<const uint32_t*>(&p.src[max(s, 0)])[tid];
+  __syncthreads();
+  const SrcDesc& d = *sd;
+  if (s >= 0) {
+    const int* box = d.box[grid];
+    if (!(max(un.X0, box[2]) < min(un.X0 + un.gw, box[3]) &&
+          max(un.Y0 + un.y0, box[0]) < min(un.Y0 + un.y0 + un.rows, box[1])))
+      s = -1;
+  }
+  if (s < 0 && p.chained) return;  // the canvas already holds these pixels
+  const bool from_canvas = p.chained;
+  const float* u = d.u;
+  const int* box = d.box[grid];
+  const int th = un.chroma ? d.dims[2] : d.dims[0];
+  const int tw = un.chroma ? d.dims[3] : d.dims[1];
+  const uint8_t* src[2] = {reinterpret_cast<const uint8_t*>(d.plane[un.chroma ? 1 : 0]),
+                           reinterpret_cast<const uint8_t*>(d.plane[un.chroma ? 2 : 0])};
+  const float op = u[22];
+  const float a_fill = op * u[21];
+  const float fill[2] = {csc(un.chroma ? 1 : 0, u[18], u[19], u[20]), csc(2, u[18], u[19], u[20])};
+  const float px0 = ndc(0, un.gw);
+  const float py0 = ndc(un.y0, un.gh);
+  const float u1py = u[1] * py0, u3py = u[3] * py0, u13py = u[13] * py0, u15py = u[15] * py0;
+  Maps m0;
+  run_rows<true>(u, px0, u1py, u3py, u15py, m0);
+  m0.tx_in_y = m0.uv_in_y = true;
+
+  // group g's tap rows into its ring slot; warp 0 alone, one bulk copy a lane: of
+  // each row q's tap rows r0 and r1 = r0 + 1 in plane k, one copy of both where it
+  // fits the two slots (`pair`: the staged span is all but the row), else one of
+  // each tap t
+  auto issue = [&](int g) {
+    const int c_lo = shape[0], c_hi = shape[1], slot = shape[2], group = shape[3], pair = shape[4];
+    const int i0 = g * group, st = g % kStages;
+    const int per = pair ? 1 : 2;  // copies a row and plane
+    const int jobs = slot ? min(group, un.rows - i0) * nk * per : 0;
+    auto copy = [&](int j, uintptr_t& from, uint32_t& dst) -> uint32_t {
+      const int t = pair ? 0 : j & 1, qk = pair ? j : j >> 1;
+      const int q = qk >> (nk - 1), k = qk & (nk - 1);
+      const RowMap& r = rmap[i0 + q];
+      if (r.state != 2) return 0;
+      const uint8_t* plane = src[k];
+      const uintptr_t first = reinterpret_cast<uintptr_t>(plane + static_cast<size_t>(r.r[t]) * tw);
+      const uintptr_t last =
+          reinterpret_cast<uintptr_t>(plane + static_cast<size_t>(r.r[pair ? 1 : t]) * tw);
+      from = (first + c_lo) & ~uintptr_t{15};
+      dst = ring_at + st * kStageBytes + (q * 2 * nk + 2 * k + t) * slot;
+      return static_cast<uint32_t>(((last + c_hi + 16) & ~uintptr_t{15}) - from);
+    };
+    uint32_t bytes = 0;
+    for (int j = tid; j < jobs; j += 32) {
+      uintptr_t from;
+      uint32_t dst;
+      bytes += copy(j, from, dst);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+    if (tid == 0) bar_expect(bars_at + 8 * st, bytes);
+    __syncwarp();
+    async_fence();
+    for (int j = tid; j < jobs; j += 32) {
+      uintptr_t from = 0;
+      uint32_t dst = 0;
+      const uint32_t len = copy(j, from, dst);
+      if (len) bulk_copy(dst, reinterpret_cast<const void*>(from), len, bars_at + 8 * st);
+    }
+  };
+
+  if (tid < 32) {
+    // warp 0: the staged span and the groups, the maps of the rows the first
+    // groups stage, the first copies, then the maps of the other rows.  The taps
+    // of the box's first and last columns in the unit (pixel_maps' texture map,
+    // whether or not the column is drawn) bound every tap.
+    int c_lo = 1 << 30, c_hi = -1;
+    if (s >= 0 && tid < 2) {
+      const int lx = tid == 0 ? max(box[2] - un.X0, 0) : min(box[3] - un.X0, un.gw) - 1;
+      const float tx_x = u[0] * ndc(lx, un.gw) + u1py + u[4];
+      const AxisTaps a = axis_taps(u[6] * tx_x + m0.u7ty + u[10], tw);
+      c_lo = a.i0;
+      c_hi = a.i1;
+    }
+#pragma unroll
+    for (int o = 1; o <= 16; o *= 2) {
+      c_lo = min(c_lo, __shfl_xor_sync(0xffffffffu, c_lo, o));
+      c_hi = max(c_hi, __shfl_xor_sync(0xffffffffu, c_hi, o));
+    }
+    // each tap row staged from the 16-byte boundary at or before column c_lo to
+    // the one after c_hi: `slot` bytes at most
+    const int slot = c_hi >= c_lo ? ((c_hi - c_lo + 16) & ~15) + 16 : 0;
+    // both tap rows in one copy where it fits their two slots (the copy runs from
+    // the 16-byte boundary at or before column c_lo of r0 to the one after c_hi of
+    // r0 + 1)
+    const bool pair = slot && ((tw + c_hi - c_lo + 31) & ~15) <= 2 * slot;
+    // a row at least a group: the host entry admits only sources whose rows fit a
+    // stage (takes_rows, row_fits) and cells whose rows fit an output group
+    int group = kOutBytes / (nk * pitch);
+    if (slot) group = min(group, kStageBytes / (2 * nk * slot));
+    group = min(group, un.rows);
+    auto row_map = [&](int i) {
+      const int y = un.Y0 + un.y0 + i;
+      const float py = ndc(un.y0 + i, un.gh);
+      Maps m;
+      const bool bd = run_rows<true>(u, px0, u[1] * py, u[3] * py, u[15] * py, m);
+      const AxisTaps a = axis_taps(m.uv_y, th);
+      RowMap& r = rmap[i];
+      r.state = !(s >= 0 && y >= box[0] && y < box[1] && bd) ? 0 : (m.tx_in_y && m.uv_in_y ? 2 : 1);
+      r.r[0] = a.i0;
+      r.r[1] = a.i1;
+      r.fy = a.f;
+      const size_t at = static_cast<size_t>(y) * ostride + un.X0;
+      const int base = ((i / group) % kStages) * kStageBytes + (i % group) * 2 * nk * slot;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        r.lead[k] = static_cast<int>(reinterpret_cast<uintptr_t>(out[k] + at) & 15);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          // column c of tap row t at off[k][t] + c: after the copy's first byte, at
+          // its 16-byte boundary, by the row's offset in a paired copy
+          const int tc = pair ? 0 : t;
+          const uintptr_t tap =
+              reinterpret_cast<uintptr_t>(src[k] + static_cast<size_t>(r.r[tc]) * tw + c_lo);
+          r.off[k][t] = base + (2 * k + tc) * slot + static_cast<int>(tap & 15) - c_lo +
+                        (r.r[t] - r.r[tc]) * tw;
+        }
+      }
+    };
+    const int first = min(un.rows, (kStages - 1) * group) <= 32 ? 32 : un.rows;
+    for (int i = tid; i < min(un.rows, first); i += 32) row_map(i);
+    if (tid == 0) {
+      shape[0] = c_lo;
+      shape[1] = c_hi;
+      shape[2] = slot;
+      shape[3] = group;
+      shape[4] = pair;
+      for (int st = 0; st < kStages; ++st) bar_init(bars_at + 8 * st);
+      bar_init_fence();
+    }
+    __syncwarp();
+    for (int g = 0; g < min(kStages - 1, ceil_div(un.rows, group)); ++g) issue(g);
+    for (int i = first + tid; i < un.rows; i += 32) row_map(i);
+  } else {
+    for (int lx = tid - 32; lx < un.gw; lx += kRowThreads - 32)
+      cols[lx] = s >= 0 ? col_map(u, box, un, m0, u1py, u3py, u13py, u15py, tw, lx)
+                        : ColMap{0.0f, 0, 0, 0};
+  }
+  __syncthreads();
+  const int group = shape[3];
+  const int groups = ceil_div(un.rows, group);
+
+  // group g's output rows onto the canvas: whole aligned 16-byte words, bytes at
+  // the ragged ends
+  auto store = [&](int g) {
+    const int i0 = g * group, n = min(group, un.rows - i0);
+    const uint8_t* buf = outg + (g & 1) * kOutBytes;
+    const int words = pitch / 16;
+    for (int j = tid; j < n * nk * words; j += kRowThreads) {
+      const int qk = j / words, w = j - qk * words;
+      const int q = qk / nk, k = qk - q * nk;
+      const int a = 16 * w - rmap[i0 + q].lead[k];  // the word's first column
+      if (a >= un.gw || a + 16 <= 0) continue;
+      uint8_t* dst = out[k] + static_cast<size_t>(un.Y0 + un.y0 + i0 + q) * ostride + un.X0 + a;
+      const uint8_t* from = buf + qk * pitch + 16 * w;
+      if (a >= 0 && a + 16 <= un.gw) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(from);
+      } else {
+        for (int b = max(0, -a); b < min(16, un.gw - a); ++b) dst[b] = from[b];
+      }
+    }
+  };
+
+  // per plane: the fold of a sampled pixel onto the clear is quant(kept + smp * op),
+  // and a filled pixel of the clear is one value
+  float kept[2];
+  int filled[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float cur = u8f(clear);
+    kept[k] = cur * (1.0f - op);
+    const float f = cur * (1.0f - a_fill) + fill[k] * a_fill;
+    filled[k] = quant(fminf(fmaxf(f, un.chroma ? -1.0f : 0.0f), 1.0f));
+  }
+  for (int g = 0; g < groups; ++g) {
+    if (tid < 32 && g + kStages - 1 < groups) issue(g + kStages - 1);
+    if (g > 0) store(g - 1);
+    bar_wait(bars_at + 8 * (g % kStages), static_cast<uint32_t>((g / kStages) & 1));
+    const int i0 = g * group, n = min(group, un.rows - i0);
+    uint8_t* buf = outg + (g & 1) * kOutBytes;
+    for (int vc = tid; vc < nk * un.gw; vc += kRowThreads) {
+      const int k = vc >= un.gw ? 1 : 0, lx = vc - k * un.gw;
+      const ColMap c = cols[lx];
+      for (int q = 0; q < n; ++q) {
+        const RowMap& r = rmap[i0 + q];
+        const int state = min(static_cast<int>(c.state), r.state);
+        // sample1 from the staged rows
+        auto smp = [&]() {
+          const uint8_t* t0 = smem + r.off[k][0] + c.c0;
+          const uint8_t* t1 = smem + r.off[k][1] + c.c0;
+          return lerp2(u8f(t0[0]), u8f(t0[c.d1]), u8f(t1[0]), u8f(t1[c.d1]), c.fx, r.fy);
+        };
+        int v;
+        if (from_canvas) {
+          v = out[k][static_cast<size_t>(un.Y0 + un.y0 + i0 + q) * ostride + un.X0 + lx];
+          if (state == 2) {
+            v = quant(u8f(v) * (1.0f - op) + smp() * op);
+          } else if (state == 1) {
+            const float f = u8f(v) * (1.0f - a_fill) + fill[k] * a_fill;
+            v = quant(fminf(fmaxf(f, un.chroma ? -1.0f : 0.0f), 1.0f));
+          }
+        } else {
+          v = state == 2 ? quant(kept[k] + smp() * op) : state == 1 ? filled[k] : clear;
+        }
+        buf[(q * nk + k) * pitch + r.lead[k] + lx] = static_cast<uint8_t>(v);
+      }
+    }
+    __syncthreads();  // group g is folded: its slot may be refilled, its output stored
+  }
+  store(groups - 1);
+}
+
+// One launch of the row kernel: up to kMerge kRows launches of a cell plan that no
+// launch among them chains onto another (ops/frame.py CellPlan), their units one
+// after another: 12.4 KB of parameters, one setup and one tail for the wall's tick.
+constexpr int kMerge = 2;
+struct RowLaunch {
+  FrameParams f[kMerge];
+  int count;          // launches in f
+  int units[kMerge];  // the units of each
+};
+
+// yuv cell launches whose sources are all planar and axis-aligned (K1 on the wall)
+__global__ void __launch_bounds__(kRowThreads, 4)
+    frame_composite_kernel_rows(const __grid_constant__ RowLaunch q) {
+  int u = blockIdx.x, j = 0;
+  while (j + 1 < q.count && u >= q.units[j]) u -= q.units[j++];
+  composite_rows(q.f[j], u);
+}
+
 int host_tiles(int gh, int gw) {
   return ((gw + kTileW - 1) / kTileW) * ((gh + kTileH - 1) / kTileH);
 }
@@ -912,11 +1400,89 @@ int resident_blocks(Kernel kernel, int which) {
   return cache[which][dev];
 }
 
-// One launch of `p` on `st`, as many blocks as the card holds at once (at most one per
-// tile); returns cudaGetLastError().
+// The row kernel's shared memory stays within the default 48 KB a block, for every
+// cell it takes.
+static_assert(row_smem_bytes(kMaxCellW) <= 48 * 1024, "the row kernel's shared memory");
+static_assert(((kMaxCellW + 15) & ~15) + 16 <= kOutBytes &&
+                  2 * (((kMaxCellW / 2 + 15) & ~15) + 16) <= kOutBytes,
+              "a luma row, or a chroma row of both planes, fits an output group");
+
+// The blocks a card holds at once of the row kernel for a cell width (kept per device
+// for the last width asked).
+int row_slots(int cell_w) {
+  static int width[16] = {}, slots[16] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) dev = 0;
+  if (width[dev] != cell_w) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frame_composite_kernel_rows, kRowThreads,
+                                                  row_smem_bytes(cell_w));
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    slots[dev] = max(1, per_sm) * max(1, sms);
+    width[dev] = cell_w;
+  }
+  return slots[dev];
+}
+
+// Whether the row kernel takes launch p: a kRows cell launch (its sources axis-aligned,
+// each in its own cell: ops/frame.py cell_mode) onto a planar target, its cells within
+// the column table, and every source planar with rows that fit a stage (row_fits).
+// Any other launch takes the tile kernels.
+bool takes_rows(const FrameParams& p) {
+  if (!((p.mode & 255) == kRows && p.out_fmt == kOutPlanar && p.cell_h > 0 && p.cell_w > 0 &&
+        p.cell_w <= kMaxCellW))
+    return false;
+  for (int j = 0; j < p.n && j < kCapacity; ++j) {
+    const SrcDesc& d = p.src[j];
+    if (d.fmt != kPlanar || !row_fits(d.dims[1], 1) || !row_fits(d.dims[3], 2)) return false;
+  }
+  return true;
+}
+
+// The units of a kRows launch whose units hold `chunk` rows.
+int row_units(const FrameParams& p, int chunk) {
+  return (p.w / p.cell_w) * (p.h / p.cell_h) *
+         (ceil_div(p.cell_h, chunk) + ceil_div(p.cell_h / 2, chroma_rows(chunk)));
+}
+
+// The kRows launches f[0, count) (count <= kMerge, none chained onto another) as one
+// launch of the row kernel on `st`, one block a unit, its units the fewest rows that
+// let every block be resident at once (at most kMaxChunkRows); returns
+// cudaGetLastError().
+int launch_rows(const FrameParams* f, int count, cudaStream_t st) {
+  RowLaunch q;
+  q.count = count;
+  int cell_w = 0;
+  for (int j = 0; j < count; ++j) cell_w = max(cell_w, f[j].cell_w);
+  const int slots = row_slots(cell_w);
+  int chunk = 1, units = 0;
+  for (;; ++chunk) {
+    units = 0;
+    for (int j = 0; j < count; ++j) units += row_units(f[j], chunk);
+    if (units <= slots || chunk == kMaxChunkRows) break;
+  }
+  for (int j = 0; j < kMerge; ++j) {
+    if (j < count) {
+      q.f[j] = f[j];
+      q.f[j].mode = (f[j].mode & ~0xff00) | (chunk << 8);
+      q.units[j] = row_units(f[j], chunk);
+    } else {
+      std::memset(&q.f[j], 0, sizeof q.f[j]);
+      q.units[j] = 0;
+    }
+  }
+  frame_composite_kernel_rows<<<units, kRowThreads, row_smem_bytes(cell_w), st>>>(q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of `p` on `st`: a kRows cell launch by the row kernel, any other by the
+// tile kernels with as many blocks as the card holds at once (at most one per tile);
+// returns cudaGetLastError().
 int launch(const FrameParams& p, cudaStream_t st) {
   const dim3 block(kThreads, 1, 1);
-  if (p.out_fmt == kOutRgba || p.out_fmt == kOutBgra) {
+  if (takes_rows(p)) {
+    return launch_rows(&p, 1, st);
+  } else if (p.out_fmt == kOutRgba || p.out_fmt == kOutBgra) {
     const int tiles = host_tiles(p.h, p.w);
     const int grid = min(tiles, resident_blocks(frame_composite_rgba_kernel, 1));
     frame_composite_rgba_kernel<<<grid, block, 0, st>>>(p);
@@ -955,14 +1521,18 @@ extern "C" int sv_frame_composite(const void* params, int device, void* stream) 
 // planes and whose sources' plane pointers hold each frame's offsets into the batch's
 // planes.  Each launch is copied, out0-2 added to its three target pointers and src0-2
 // to plane k of each of its n sources (0 for a plane the format lacks, whose pointer
-// stays 0), and launched as sv_frame_composite launches; with `echo` not null, the
-// launch's FrameParams as launched is also written to echo[l].  Stops at the first
-// launch that fails and returns its cudaGetLastError(), else 0; the calling thread's
-// current device is left as it was.
+// stays 0), and launched as sv_frame_composite launches, except that consecutive
+// launches the row kernel takes (takes_rows), up to kMerge of them and each but the
+// first unchained, share one launch of it; with `echo` not null, the launch's
+// FrameParams as launched is also written to echo[l].  made[0] receives the kernel
+// launches made, made[1] those of the row kernel.  Stops at the first launch that
+// fails and returns its cudaGetLastError(), else 0; the calling thread's current
+// device is left as it was.
 extern "C" int sv_frame_cells(const void* words, int launches, unsigned long long out0,
                               unsigned long long out1, unsigned long long out2,
                               unsigned long long src0, unsigned long long src1,
-                              unsigned long long src2, void* echo, int device, void* stream) {
+                              unsigned long long src2, void* echo, int* made, int device,
+                              void* stream) {
   const unsigned long long out[3] = {out0, out1, out2};
   const unsigned long long src[3] = {src0, src1, src2};
   int current = device;
@@ -970,14 +1540,32 @@ extern "C" int sv_frame_cells(const void* words, int launches, unsigned long lon
   if (current != device) cudaSetDevice(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = 0;
-  for (int l = 0; l < launches && err == 0; ++l) {
+  FrameParams group[kMerge];
+  int grouped = 0;  // kRows launches held for one launch of the row kernel
+  made[0] = made[1] = 0;
+  for (int l = 0; l <= launches && err == 0; ++l) {
     FrameParams p;
-    std::memcpy(&p, static_cast<const FrameParams*>(words) + l, sizeof p);
-    for (int k = 0; k < 3; ++k) p.out[k] += out[k];
-    for (int j = 0; j < p.n && j < kCapacity; ++j)
-      for (int k = 0; k < 3; ++k) p.src[j].plane[k] += src[k];
-    if (echo != nullptr) std::memcpy(static_cast<FrameParams*>(echo) + l, &p, sizeof p);
-    err = launch(p, st);
+    if (l < launches) {
+      std::memcpy(&p, static_cast<const FrameParams*>(words) + l, sizeof p);
+      for (int k = 0; k < 3; ++k) p.out[k] += out[k];
+      for (int j = 0; j < p.n && j < kCapacity; ++j)
+        for (int k = 0; k < 3; ++k) p.src[j].plane[k] += src[k];
+      if (echo != nullptr) std::memcpy(static_cast<FrameParams*>(echo) + l, &p, sizeof p);
+    }
+    const bool rows = l < launches && takes_rows(p);
+    if (grouped && (!rows || p.chained || grouped == kMerge)) {
+      err = launch_rows(group, grouped, st);
+      grouped = 0;
+      made[0] += err == 0;
+      made[1] += err == 0;
+    }
+    if (err != 0 || l == launches) break;
+    if (rows) {
+      group[grouped++] = p;
+    } else {
+      err = launch(p, st);
+      made[0] += err == 0;
+    }
   }
   if (current != device) cudaSetDevice(current);
   return err;

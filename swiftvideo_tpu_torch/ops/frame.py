@@ -31,18 +31,30 @@ offset into the batch) are built once and kept as a ``CellPlan``
 (``cell_plan``); a call that repeats the layout checks its planes against
 the plan and hands the plan and six base addresses to one C call, which
 adds the bases and makes the launches (``cell_params`` gives the same
-words on the host).
+words on the host).  A cell launch whose sources are all axis-aligned,
+each in its own cell, is marked in its mode word for the row kernel
+(``cell_mode``, decided once per plan), which stages each cell's tap rows
+in shared memory with bulk copies.  The C call decides what the kernel's
+tables and stages hold: it gives a marked launch to the row kernel where
+every source is planar with rows that fit its stage, merges such launches,
+unchained, into one kernel launch, gives every other launch to the tile
+kernel, and reports the kernel launches it made.
 
 The kernels are built on first use with ``nvcc`` into ``build/`` inside
 this package and launched on the current stream, both by ops/nvcc.py
 (``SIGNATURES`` declares the C entries).  CPU tensors take the plain
 version (ops/composite.composite_stack_torch, composite_cells_torch); CUDA
 tensors take the kernel or raise.  ``launches`` counts kernel launches,
-``kernel_launches`` the same by kernel name.
+``kernel_launches`` the same by the names the profiler matches
+(``YUV_KERNEL`` holds the row kernel's launches too); the recorder's
+counters ``frame.cell_launches`` and ``frame.cell_row_launches`` count the
+cell wrapper's kernel launches and those of the row kernel, as the C call
+reports them.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import math
 import struct
@@ -74,6 +86,11 @@ SOURCE = nvcc.CSRC / "frame_composite.cu"
 # sources per launch (frame_composite.cu kCapacity)
 CAPACITY = 32
 
+# the kernel a yuv launch asks for (FrameParams mode): the tile kernel, or
+# the row kernel for a cell launch whose sources are all axis-aligned, each
+# in its own cell (frame_composite.cu takes_rows decides the rest)
+TILES, ROWS = 0, 1
+
 # one SrcDesc of frame_composite.cu (192 bytes, same field order)
 _DESC = np.dtype([("plane", "<u8", 3), ("fmt", "<i4"), ("dims", "<i4", 4),
                   ("box", "<i4", (2, 4)), ("u", "<f4", 29)])
@@ -82,7 +99,7 @@ assert _DESC.itemsize == 192
 _HEADER = np.dtype([("out", "<u8", 3), ("n", "<i4"), ("h", "<i4"),
                     ("w", "<i4"), ("out_fmt", "<i4"), ("chained", "<i4"),
                     ("ch", "<i4"), ("cw", "<i4"), ("cell_h", "<i4"),
-                    ("cell_w", "<i4"), ("pad", "<i4")])
+                    ("cell_w", "<i4"), ("mode", "<i4")])
 assert _HEADER.itemsize == 64
 _PARAMS = np.dtype([("head", _HEADER), ("src", _DESC, CAPACITY)])
 # a _DESC row's plane pointers, format code and dims as a struct (its boxes
@@ -102,7 +119,7 @@ _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 # the C entries of frame_composite.cu, {name: (restype, [argtypes])}
 SIGNATURES = {
     "sv_frame_composite": (_I, [_P, _I, _P]),
-    "sv_frame_cells": (_I, [_P, _I] + [_U64] * 6 + [_P, _I, _P]),
+    "sv_frame_cells": (_I, [_P, _I] + [_U64] * 6 + [_P, _P, _I, _P]),
     "sv_frame_params_size": (_I, []),
     "sv_frame_capacity": (_I, []),
 }
@@ -305,6 +322,52 @@ def launch_plan(n: int) -> List[Tuple[int, int]]:
     return [(a, min(a + CAPACITY, n)) for a in range(0, max(n, 1), CAPACITY)]
 
 
+def axis_aligned(u: np.ndarray) -> np.ndarray:
+    """Per packed uniform row of ``u`` ([n, 29] float32): whether its maps
+    are axis-aligned (no rotation in the element, texture or border map:
+    u[1], u[2], u[7], u[8], u[13], u[14] zero) and finite (every map term
+    below 1e6 in size), as frame_composite.cu ``axis_aligned`` tests it."""
+    u = np.asarray(u, np.float32).reshape(-1, 29)
+    with np.errstate(invalid="ignore"):
+        return ((u[:, [1, 2, 7, 8, 13, 14]] == 0).all(1)
+                & (np.abs(u[:, :18]) < np.float32(1e6)).all(1))
+
+
+def cell_mode(rows: np.ndarray, cell: Tuple[int, int],
+              size: Tuple[int, int]) -> int:
+    """The mode word of a cell launch onto a ``size`` band of ``cell`` =
+    (w, h) cells with the _DESC ``rows`` as its sources: the row kernel
+    (ROWS, and in bits 16-31 the band's cell of source 0) where every
+    source's maps are axis-aligned and source j's boxes lie inside cell
+    first + j of the band (row-major) on both grids, as ``CellPlan`` lays
+    them out; else the tile kernel (TILES).  The C call gives a launch so
+    marked to the tile kernel all the same where a source's format or
+    width, or the cell's width, is beyond the row kernel
+    (frame_composite.cu takes_rows)."""
+    w, h = int(cell[0]), int(cell[1])
+    n = len(rows)
+    if not (n and bool(axis_aligned(rows["u"]).all())):
+        return TILES
+    cols = int(size[0]) // w
+    box = rows["box"].astype(np.int64)
+    # the cell of each source from its luma box's first pixel
+    luma = box[:, 0]
+    drawn = (luma[:, 1] > luma[:, 0]) & (luma[:, 3] > luma[:, 2])
+    firsts = set(((luma[:, 0] // h) * cols + luma[:, 2] // w
+                  - np.arange(n))[drawn].tolist())
+    first = firsts.pop() if len(firsts) == 1 else 0 if not firsts else -1
+    if not 0 <= first < 1 << 15:
+        return TILES
+    r, c = np.divmod(first + np.arange(n), cols)
+    for grid, (gh, gw) in enumerate(((h, w), (h // 2, w // 2))):
+        y0, y1, x0, x1 = box[:, grid].T
+        inside = ((y0 >= r * gh) & (y1 <= (r + 1) * gh)
+                  & (x0 >= c * gw) & (x1 <= (c + 1) * gw))
+        if not (inside | (y1 <= y0) | (x1 <= x0)).all():
+            return TILES
+    return ROWS | first << 16
+
+
 # a FrameParams is kept as whole 64-bit words (CellPlan.words)
 assert _PARAMS.itemsize % 8 == 0
 
@@ -335,8 +398,9 @@ def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
                 cell: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """One launch's FrameParams: the target's planes, shape and chroma
     grid, its cell grid (``cell`` = (w, h) of a y420p target's cells, in
-    rows and columns that tile the target, or None), and ``rows`` (at most
-    CAPACITY _DESC rows) as its sources."""
+    rows and columns that tile the target, or None), ``rows`` (at most
+    CAPACITY _DESC rows) as its sources, and its kernel (a cell launch's
+    ``cell_mode``, else the tile kernel)."""
     if len(rows) > CAPACITY:
         raise ValueError(f"{len(rows)} sources in one launch, at most "
                          f"{CAPACITY}")
@@ -358,6 +422,7 @@ def pack_params(size: Tuple[int, int], out_fmt: PixelFormat, outs,
     head["ch"], head["cw"] = chroma_grid(out_fmt, size)
     if cell is not None:
         head["cell_h"], head["cell_w"] = cell_h, cell_w
+        head["mode"] = cell_mode(rows, cell, size)
     params["src"][:len(rows)] = rows
     return params
 
@@ -367,11 +432,12 @@ class CellPlan:
     it: the FrameParams of each launch of ``cell_launch_plan`` (``table``,
     and the same bytes as rows of 64-bit words, ``words``, read-only) with
     every field but the pointers filled in, each launch's target pointers
-    holding its band's offsets into the canvas planes, and each source's
-    plane pointers its frame times the plane's frame stride.  Nothing here
-    depends on where the planes lie: a live wall's frames are new
-    allocations every tick, and a call adds the planes' base addresses
-    (``params`` on the host, ``sv_frame_cells`` in the launch).  The key:
+    holding its band's offsets into the canvas planes, each source's plane
+    pointers its frame times the plane's frame stride, and the kernel each
+    launch asks for (``pack_params``).  Nothing here depends on where the
+    planes lie: a live wall's frames are new allocations every tick, and a
+    call adds the planes' base addresses (``params`` on the host,
+    ``sv_frame_cells`` in the launch).  The key:
     the cell size, the grid as the call gave it (None: one column), the
     format, each plane's shape and strides (u8), the device and the packed
     uniforms' float32 bytes."""
@@ -407,9 +473,22 @@ class CellPlan:
                                         PixelFormat.y420p, (), band, chained,
                                         cell=cell)
             self.table[k]["head"]["out"] = np.uint64(r0) * row_bytes
-        self.table.flags.writeable = False
-        self.words = self.table.view(np.uint64).reshape(len(bands), -1)
-        self.ptr = self.table.ctypes.data
+        self._keep(self.table)
+
+    def _keep(self, table: np.ndarray) -> None:
+        table.flags.writeable = False
+        self.table, self.ptr = table, table.ctypes.data
+        self.words = table.view(np.uint64).reshape(len(table), -1)
+
+    def on_tiles(self) -> "CellPlan":
+        """The plan with every launch on the tile kernel (its mode words
+        cleared): the same canvas by the other kernel, to compare the
+        two."""
+        other = copy.copy(self)
+        table = self.table.copy()
+        table["head"]["mode"] = TILES
+        other._keep(table)
+        return other
 
     def fits(self, cell_size, grid, planes, fmt) -> bool:
         """Whether a call's cell size, grid, format and planes are the
@@ -442,6 +521,10 @@ class CellPlan:
                                           np.uint64(0))
         return table.view(np.uint64).reshape(len(table), -1)
 
+
+# sv_frame_cells' count of the kernel launches it made, and of those the row
+# kernel's (one a call: the C call runs without the GIL)
+_Made = ctypes.c_int * 2
 
 # the last plan a lookup returned: the one a steady caller repeats
 _recent: Optional[CellPlan] = None
@@ -503,16 +586,21 @@ def cell_params(cell_size: Tuple[int, int], grid: Tuple[int, int], planes,
 def _launch_cells(plan: CellPlan, outs, planes, dev: torch.device,
                   echo: Optional[np.ndarray] = None) -> None:
     """Make ``plan``'s launches onto the canvas planes ``outs`` from the
-    batch ``planes`` with one C call; ``echo`` ([launches, words] u64)
-    receives each launch's words as launched."""
+    batch ``planes`` with one C call, and count the kernel launches it
+    reports; ``echo`` ([launches, words] u64) receives each launch's words
+    as launched."""
     global launches
     bases = [p.data_ptr() for p in planes] + [0] * (3 - len(planes))
+    made = _Made()
     nvcc.launch(build().sv_frame_cells, dev, plan.ptr, len(plan.words),
                 outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
                 *bases, None if echo is None else echo.ctypes.data,
-                span="frame.launch")
-    launches += len(plan.words)
-    kernel_launches[YUV_KERNEL] += len(plan.words)
+                ctypes.addressof(made), span="frame.launch")
+    launches += made[0]
+    if spans.ON:
+        spans.count("frame.cell_launches", made[0])
+        spans.count("frame.cell_row_launches", made[1])
+    kernel_launches[YUV_KERNEL] += made[0]
 
 
 def composite_frame_cuda(size: Tuple[int, int], sources,

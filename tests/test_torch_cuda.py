@@ -12,8 +12,11 @@ the device resampler (< 1e-4 against the host route) and the SRC stage's
 bookkeeping; the ladder's rungs (one frame-kernel launch each, 0 LSB
 against the plain composite; the products, kept as a comparison, within 1
 LSB and raising under the TF32 switches), the frame kernel's cell launch
-(0 LSB against the per-cell plain fold, one launch per 32 cells; onto a
-canvas of cell rows and columns, chained bands included), its kept plan
+on the row kernel and, for a rotated cell, the tile kernel (0 LSB against
+the per-cell plain fold, one FrameParams per 32 cells, the row kernel's
+unchained ones two to a launch, counted by the profiler; the wall's and
+the batch scale's shapes; onto a canvas of cell rows and columns, chained
+bands included), its kept plan
 (new addresses and new uniforms, 0 LSB; the words the C entry launched
 against the plan's words on the host) and the mixing
 wall's default and per-cell paths through it (0 LSB); the upload
@@ -30,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from swiftvideo_tpu_torch.core import TimePoint
+from swiftvideo_tpu_torch.core import TimePoint, spans
 from swiftvideo_tpu_torch.media import PixelFormat as PF
 from swiftvideo_tpu_torch.media.audio import AudioFormat, AudioSample
 from swiftvideo_tpu_torch.mix.src_audio import AudioSampleRateConversion
@@ -547,29 +550,111 @@ def _cell_unis(n, stream, cell, rng):
     return np.stack([kinds[k]().pack() for k in picks[:n]])
 
 
-@pytest.mark.parametrize("n", [1, 5, 40, 64])
-@pytest.mark.parametrize("cell", [(240, 136), (34, 18)],
-                         ids=lambda c: "x".join(map(str, c)))
-def test_cell_launch_matches_per_cell_plain_fold_on_card(card, cell, n):
-    """Each cell of the stack bit for bit the plain composite of its source
-    alone onto a cleared cell, with opacity, fill, offset and overhanging
-    cells; one launch per 32 cells."""
-    rng = np.random.default_rng(n)
-    ys, us, vs = _y420p(rng, 192, 108, card, n)
-    unis = _cell_unis(n, (192, 108), cell, rng)
-    launches, calls = frame.launches, composite.calls
-    got = frame.composite_cells_cuda(cell, [ys, us, vs], PF.y420p, unis)
-    assert frame.launches == launches + -(-n // CAP)
-    assert composite.calls == calls
-    want = [composite.composite_stack_torch(
-        PF.y420p, cell, [([ys[i], us[i], vs[i]], PF.y420p, unis[i])], card)
-        for i in range(n)]
+def _launches_a_call(fn, made, calls=20, tries=3):
+    """Whether the card ran ``made`` frame-kernel launches a call of fn:
+    torch.profiler's CUDA kernel events named ``frame_composite_kernel`` or
+    a longer name over ``calls`` calls, after a warm call, lie in ((made -
+    1) calls, made calls].  A profile can lose launches (PERF.md), so it is
+    taken again, ``tries`` times at most, as chip_smoke.py takes its own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and frame.YUV_KERNEL in e.name))
+        if (made - 1) * calls < counts[-1] <= made * calls:
+            return True
+    print(f"frame-kernel launches seen in {calls} calls: {counts}")
+    return False
+
+
+def _rotated_unis(n, stream, cell, rng, at):
+    """``_cell_unis`` with cell ``at`` rotated (off the row kernel)."""
+    unis = _cell_unis(n, stream, cell, rng)
     tw, th = cell
-    for g, r in zip(got, (th, th // 2, th // 2)):
-        assert g.is_cuda and g.shape[0] == n * r
-    for i, w in enumerate(want):
-        for g, wp, r in zip(got, w, (th, th // 2, th // 2)):
-            assert torch.equal(g[i * r:(i + 1) * r], wp)
+    unis[at] = rect_uniforms(stream, cell, x=tw * 0.2 + 0.25,
+                             y=th * 0.2 + 0.25, w=tw * 0.6, h=th * 0.6,
+                             rotation=0.3, opacity=0.9).pack()
+    return unis
+
+
+# (frames, stream size, cell, grid or None, uniforms, route, (kernel
+# launches, of them the row kernel's) a call): "cells" is
+# composite_cells_cuda, "scale" matscale.scale_y420p_batch
+_CELL_CASES = {
+    **{f"{c[0]}x{c[1]}-{n}": (n, (192, 108), c, None, "per-cell", "cells",
+                              (1, 1))
+       for n in (1, 5, 40, 64) for c in ((240, 136), (34, 18))},
+    "wall 64x1080p on 8x8": (64, (1920, 1080), (240, 136), (8, 8),
+                             "identity", "cells", (1, 1)),
+    "scale 40x192x108 to 48x36": (40, (192, 108), (48, 36), None, "identity",
+                                  "scale", (1, 1)),
+    "scale 4x1080p to 640x360": (4, (1920, 1080), (640, 360), None,
+                                 "identity", "scale", (1, 1)),
+    "ragged 34x18 on 5x2": (7, (64, 36), (34, 18), (5, 2), "per-cell",
+                            "cells", (1, 1)),
+    "rotated cell 3 of 40": (40, (192, 108), (240, 136), None, "rotated",
+                             "cells", (2, 1)),
+    # the widest rows a stage holds: luma 4064 and chroma 2032 bytes (its
+    # four chroma slots fill the stage); a chroma row of 2033 or 2040
+    # bytes does not fit, and those launches take the tile kernel
+    **{f"{w}-wide frames": (3, (w, 72), (240, 136), None, "per-cell", "cells",
+                            (1, int(w <= 4064))) for w in (4064, 4066, 4080)},
+}
+
+
+@pytest.mark.parametrize("case", list(_CELL_CASES), ids=str)
+def test_cell_launch_matches_per_cell_plain_fold_on_card(card, case):
+    """Each cell bit for bit the plain composite of its source alone onto a
+    cleared cell (with opacity, fill, offset and overhanging cells; the
+    wall's own shapes; the batch scale's; frames at and past the widest
+    rows the row kernel stages), one FrameParams per 32 cells; the C
+    call's counts say which kernel took each launch: the row kernel where
+    every source of the launch is axis-aligned and its rows fit a stage
+    (both of a 40- or 64-cell layout in one launch of it), the tile kernel
+    for the launch that holds a rotated cell or rows too wide; the
+    profiler counts the same launches."""
+    n, stream, cell, grid, kind, route, want = _CELL_CASES[case]
+    rng = np.random.default_rng(n)
+    ys, us, vs = _y420p(rng, *stream, card, n)
+    unis = (_cell_unis(n, stream, cell, rng) if kind == "per-cell"
+            else _rotated_unis(n, stream, cell, rng, 3) if kind == "rotated"
+            else np.stack([identity_uniforms(stream, cell).pack()] * n))
+    launches, calls = frame.launches, composite.calls
+
+    def call():
+        if route == "scale":
+            plan = matscale.plan_scale(identity_uniforms(stream, cell), cell,
+                                       stream[::-1])
+            return [t.reshape(-1, t.shape[-1]) for t in
+                    matscale.scale_y420p_batch(ys, us, vs, plan)]
+        return frame.composite_cells_cuda(cell, [ys, us, vs], PF.y420p, unis,
+                                          grid=grid)
+    spans.start()
+    try:
+        got = call()
+        torch.cuda.synchronize()
+    finally:
+        rec = spans.stop()
+    assert len(frame.cell_plan(cell, grid, [ys, us, vs], PF.y420p,
+                               unis).words) == -(-n // CAP)
+    assert frame.launches == launches + want[0]
+    assert composite.calls == calls
+    assert (rec.counters.get("frame.cell_launches"),
+            rec.counters.get("frame.cell_row_launches", 0)) == want
+    assert _launches_a_call(call, want[0])
+    want = composite.composite_cells_torch(
+        cell, [([ys[i], us[i], vs[i]], PF.y420p, unis[i]) for i in range(n)],
+        card, grid=grid)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("n,cols,rows,cell", [
@@ -580,7 +665,8 @@ def test_cell_canvas_matches_plain_canvas_on_card(card, n, cols, rows, cell):
     """Frames straight onto a canvas of cell rows and columns: bit for bit
     the plain canvas (each source alone on its cleared cell, every other
     cell cleared), chained bands included (5, 7, 12 and 40 columns do not
-    divide 32); one launch per 32 cells, and new frames at new addresses
+    divide 32); one FrameParams per 32 cells, launched as the kept plan
+    reports them (the profiler agrees), and new frames at new addresses
     through the same kept table."""
     rng = np.random.default_rng(n + cols)
     unis = _cell_unis(n, (192, 108), cell, rng)
@@ -589,8 +675,14 @@ def test_cell_canvas_matches_plain_canvas_on_card(card, n, cols, rows, cell):
         launches, calls = frame.launches, composite.calls
         got = frame.composite_cells_cuda(cell, [ys, us, vs], PF.y420p, unis,
                                          grid=(cols, rows))
-        assert frame.launches == launches + -(-n // CAP)
+        plan = frame.cell_plan(cell, (cols, rows), [ys, us, vs], PF.y420p,
+                               unis)
+        made = frame.launches - launches
+        assert len(plan.words) == -(-n // CAP)
+        assert 1 <= made <= len(plan.words)
         assert composite.calls == calls
+        assert _launches_a_call(lambda: frame.composite_cells_cuda(
+            cell, [ys, us, vs], PF.y420p, unis, grid=(cols, rows)), made)
         want = composite.composite_cells_torch(
             cell, [([ys[i], us[i], vs[i]], PF.y420p, unis[i])
                    for i in range(n)], card, grid=(cols, rows))
@@ -621,15 +713,17 @@ def test_wall_canvas_on_card_over_chained_launches(card):
     assert np.array_equal(out[3].cpu().numpy(), host)
 
 
-@pytest.mark.parametrize("n,grid,canvas", [(64, (8, 8), (256, 144)),
-                                           (40, (7, 6), (224, 108))],
-                         ids=["64 on 8x8", "40 on 7x6"])
-def test_kept_cell_plan_on_card(card, n, grid, canvas):
+@pytest.mark.parametrize("n,grid,canvas,made", [
+    (64, (8, 8), (256, 144), 1), (40, (7, 6), (224, 108), 2)],
+    ids=["64 on 8x8", "40 on 7x6"])
+def test_kept_cell_plan_on_card(card, n, grid, canvas, made):
     """The cell wrapper's kept plan: three batches at new addresses, then a
     change of uniforms; each canvas 0 LSB against the plain canvas, the
-    first three from one plan; the words the C entry launched equal the
-    plan's words on the host (``cell_params``), launch by launch, and its
-    launches give the same canvas."""
+    first three from one plan; the C entry's launches as it counts them
+    (two FrameParams as one launch of the row kernel, or two where the
+    second is chained); the words it launched equal the plan's words on
+    the host (``cell_params``), launch by launch, and its launches give
+    the same canvas."""
     rng = np.random.default_rng(n)
     sw, sh = 96, 54
     cell = (canvas[0] // grid[0], canvas[1] // grid[1])
@@ -643,8 +737,8 @@ def test_kept_cell_plan_on_card(card, n, grid, canvas):
         launches = frame.launches
         got = frame.composite_cells_cuda(cell, planes, PF.y420p, unis,
                                          grid=grid)
-        assert frame.launches == launches + len(frame.launch_plan(n))
         plans.append(frame.cell_plan(cell, grid, planes, PF.y420p, unis))
+        assert frame.launches == launches + made
         want = composite.composite_cells_torch(
             cell, [([p[i] for p in planes], PF.y420p, unis[i])
                    for i in range(n)], card, grid=grid)

@@ -271,8 +271,9 @@ def test_wall_spans_on_the_cpu():
 @pytest.mark.cuda
 def test_spans_of_the_card_paths():
     """On the card: an upload's page-locked copy and enqueue inside its
-    span, with its bytes counted, the cell wrapper's launches inside the
-    wrapper's span, and the wall's audio mix counted as a kernel mix."""
+    span, with its bytes counted, the cell wrapper's launch inside the
+    wrapper's span and counted as the row kernel's, and the wall's audio mix
+    counted as a kernel mix."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from swiftvideo_tpu_torch.ops import barriers
@@ -298,7 +299,8 @@ def test_spans_of_the_card_paths():
     assert {k: v for k, v in rec.counters.items()
             if not k.startswith("frame.cell_plan_")} == {
         "barriers.uploads": 2, "barriers.upload_bytes": 64 * 36 + 32 * 18,
-        "wall.audio_mixes": 1, "wall.audio_kernel_mixes": 1}
+        "wall.audio_mixes": 1, "wall.audio_kernel_mixes": 1,
+        "frame.cell_launches": 1, "frame.cell_row_launches": 1}
     assert rec.counters["frame.cell_plan_lookups"] == 1
 
 

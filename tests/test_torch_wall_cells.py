@@ -120,11 +120,11 @@ def test_pack_params_carries_the_cell_grid():
     assert frame._HEADER.itemsize == 64
     assert len(raw) == 64 + CAP * 192 == 6208
     # header: out[3] (u64), n, h, w, out_fmt, chained, ch, cw, cell_h,
-    # cell_w, pad (i32)
+    # cell_w, mode (i32)
     n_at, h, w, fmt_code, chained = np.frombuffer(raw, "<i4", 5, 24)
     assert (n_at, h, w, fmt_code, chained) == (n, n * 136, 240, 0, 0)
     assert tuple(np.frombuffer(raw, "<i4", 2, 44)) == (n * 68, 120)
-    assert tuple(np.frombuffer(raw, "<i4", 3, 52)) == (136, 240, 0)
+    assert tuple(np.frombuffer(raw, "<i4", 3, 52)) == (136, 240, frame.ROWS)
     for i in range(n):
         at = 64 + 192 * i
         # each frame's planes by its frame stride; the frame's dims
@@ -136,12 +136,13 @@ def test_pack_params_carries_the_cell_grid():
         u = np.frombuffer(raw, "<f4", 29, at + 76)
         assert np.array_equal(u.view(np.uint32),
                               unis[i].astype(np.float32).view(np.uint32))
-    # no cell grid: both words stay 0, as every other launch packs them
+    # no cell grid: the three words stay 0, as every other launch packs
+    # them
     plain = frame.pack_params(size, Y420P, outs, rows, False).tobytes()
     assert not any(np.frombuffer(plain, "<i4", 3, 52))
     assert raw[:52] == plain[:52] and raw[64:] == plain[64:]
     text = frame.SOURCE.read_text()
-    assert "int cell_h, cell_w;" in text and "int pad;" in text
+    assert "int cell_h, cell_w;" in text and "int mode;" in text
 
 
 @pytest.mark.parametrize("out_fmt", [PortPF.y422p, PortPF.y444p, PortPF.nv12,
@@ -357,6 +358,168 @@ def test_kept_launch_table_after_a_pointer_rewrite_equals_a_fresh_build(
         assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
     # one lookup a call, one miss a build
     assert plan_counts() == (4, 2)
+
+
+# a change to cell 35's uniforms (in the second of a 40-cell layout's two
+# launches) and the kernel that launch then takes
+_MODE_CHANGES = {
+    "identity": (None, frame.ROWS),
+    "rect": ("rect", frame.ROWS),
+    **{f"u[{k}]": (k, frame.TILES) for k in (1, 2, 7, 8, 13, 14)},
+    "nan": ("nan", frame.TILES),
+    "inf": ("inf", frame.TILES),
+    "1e6": ("1e6", frame.TILES),
+}
+
+
+@pytest.mark.parametrize("change", list(_MODE_CHANGES))
+def test_cell_plan_marks_axis_aligned_launches_for_the_row_kernel(
+        plan_counts, change):
+    """A cell launch whose sources are all planar and axis-aligned is marked
+    for the row kernel in its kept words; a rotation term (u[1], u[2],
+    u[7], u[8], u[13], u[14] nonzero) or a map term that is not finite or
+    not below 1e6 in size puts that launch on the tile kernel, and the
+    other launch stays marked.  The mark is kept with the plan, and a
+    changed uniform rebuilds it."""
+    n, grid, cell, stream = 40, (8, 5), (34, 18), (32, 16)
+    rng = np.random.default_rng(35)
+    planes, _ = _batch(rng, n, stream, cell)
+    unis = np.stack([identity_uniforms(stream, cell).pack()] * n)
+    what, mode = _MODE_CHANGES[change]
+    if what == "rect":
+        unis[35] = rect_uniforms(stream, cell, x=3.25, y=-1.75, w=20.5,
+                                 h=22.5, opacity=0.8,
+                                 fill_color=(0.9, 0.2, 0.1, 0.6),
+                                 border=(0.25, 0.25, 33.5, 17.5)).pack()
+    elif what == "nan":
+        unis[35, 4] = np.nan
+    elif what == "inf":
+        unis[35, 16] = np.inf
+    elif what == "1e6":
+        unis[35, 0] = 1e6
+    elif what is not None:
+        unis[35, what] = 0.125
+    plan = frame.cell_plan(cell, grid, planes, Y420P, unis)
+    modes = plan.table["head"]["mode"] & 255
+    assert modes.tolist() == [frame.ROWS, mode]
+    assert [int(w.view(frame._PARAMS)["head"]["mode"][0]) & 255
+            for w in plan.words] == modes.tolist()
+    again = frame.cell_plan(cell, grid, _batch(rng, n, stream, cell)[0],
+                            Y420P, unis.copy())
+    assert again is plan and plan_counts() == (2, 1)
+    unis[35] = identity_uniforms(stream, cell).pack()
+    fresh = frame.cell_plan(cell, grid, planes, Y420P, unis)
+    assert (fresh is plan) == (what is None)
+    assert (fresh.table["head"]["mode"] & 255).tolist() == [frame.ROWS] * 2
+    assert plan_counts() == (1, int(what is not None))
+
+
+@pytest.mark.parametrize("n,grid,rotated", [
+    (40, None, None), (96, None, None), (64, (8, 8), None), (40, (7, 6), None),
+    (70, (40, 2), None), (100, (12, 9), None), (40, None, 3),
+    (64, (8, 8), 40)], ids=str)
+def test_cell_plan_marks_each_launch_with_its_first_cell(n, grid, rotated):
+    """Each FrameParams of a layout asks for the row kernel with, in bits
+    16-31 of its mode word, the band's cell that its source 0 lies in
+    (cells [a, b) onto the band of cell rows from r0: cell a - r0 * cols),
+    chained bands included; the one that holds a rotated cell asks for the
+    tile kernel."""
+    cell, stream = (34, 18), (32, 16)
+    rng = np.random.default_rng(n)
+    planes, _ = _batch(rng, n, stream, cell)
+    unis = np.stack([identity_uniforms(stream, cell).pack()] * n)
+    if rotated is not None:
+        unis[rotated, 1] = 0.125
+    cols, rows = (1, n) if grid is None else grid
+    plan = frame.cell_plan(cell, grid, planes, Y420P, unis)
+    bands = frame.cell_launch_plan(n, cols, rows)
+    want = [frame.TILES if rotated is not None and a <= rotated < b
+            else frame.ROWS | (a - r0 * cols) << 16
+            for a, b, r0, _r1, _chained in bands]
+    assert len(plan.words) == len(bands) == -(-n // CAP)
+    assert plan.table["head"]["mode"].tolist() == want
+
+
+def _band(change):
+    """The sources of the first FrameParams of a 64-cell 8x8 layout of
+    34x18 cells, as ``CellPlan`` lays them out, with ``change`` made, and
+    that launch's band size."""
+    cell = (34, 18)
+    rng = np.random.default_rng(64)
+    planes, _ = _batch(rng, 64, (32, 16), cell)
+    unis = np.stack([identity_uniforms((32, 16), cell).pack()] * 64)
+    head = frame.cell_plan(cell, (8, 8), planes, Y420P, unis).table[0]
+    rows = head["src"][:int(head["head"]["n"])].copy()
+    box = rows["box"]
+    if change == "luma box over the next cell":
+        box[1, 0, 3] += cell[0]
+    elif change == "chroma box over the next row":
+        box[2, 1, 1] += cell[1] // 2
+    elif change == "two sources swapped":
+        box[[0, 1]] = box[[1, 0]]
+    elif change == "an empty box":
+        box[3, :, 1] = box[3, :, 0]
+    return rows, cell, (int(head["head"]["w"]), int(head["head"]["h"]))
+
+
+@pytest.mark.parametrize("change,marked", [
+    ("as laid out", True), ("luma box over the next cell", False),
+    ("chroma box over the next row", False), ("two sources swapped", False),
+    ("an empty box", True)])
+def test_cell_mode_marks_sources_each_in_its_own_cell(change, marked):
+    """``cell_mode`` asks for the row kernel only where source j's boxes
+    lie inside cell first + j of the band on both grids (a source that
+    draws nothing places nothing); a box that reaches into another cell,
+    or sources out of cell order, leave the launch to the tile kernel."""
+    rows, cell, size = _band(change)
+    assert frame.cell_mode(rows, cell, size) == (frame.ROWS if marked
+                                                 else frame.TILES)
+
+
+def test_plan_on_tiles_clears_only_the_mode_words():
+    """``CellPlan.on_tiles``: the same launches, each asking for the tile
+    kernel, kept read-only beside the plan, which is left as it was."""
+    cell = (34, 18)
+    rng = np.random.default_rng(7)
+    planes, _ = _batch(rng, 64, (32, 16), cell)
+    unis = np.stack([identity_uniforms((32, 16), cell).pack()] * 64)
+    plan = frame.cell_plan(cell, (8, 8), planes, Y420P, unis)
+    tiles = plan.on_tiles()
+    assert tiles is not plan and tiles.out_shapes == plan.out_shapes
+    assert (plan.table["head"]["mode"] & 255).tolist() == [frame.ROWS] * 2
+    assert tiles.table["head"]["mode"].tolist() == [frame.TILES] * 2
+    cleared = plan.table.copy()
+    cleared["head"]["mode"] = frame.TILES
+    assert tiles.table.tobytes() == cleared.tobytes()
+    assert tiles.words.tobytes() == tiles.table.tobytes()
+    assert tiles.ptr == tiles.table.ctypes.data
+    assert not tiles.table.flags.writeable and not tiles.words.flags.writeable
+
+
+def test_row_kernel_byte_to_float_is_the_tables_quotient():
+    """frame_composite.cu u8f: v exactly (2^23 + v, less 2^23), times the
+    reciprocal of 255 rounded to float32, corrected by one fused
+    multiply-add of its residual, is v / 255 correctly rounded (the tile
+    kernel's table) for every byte; worked in exact rationals, each step
+    rounded to float32 as the card rounds it."""
+    from fractions import Fraction
+
+    def rn(x: Fraction) -> Fraction:
+        f = np.float32(float(x))
+        near = [np.nextafter(f, np.float32(-np.inf)), f,
+                np.nextafter(f, np.float32(np.inf))]
+        best = min(near, key=lambda c: (abs(Fraction(float(c)) - x),
+                                        int(c.view(np.uint32)) & 1))
+        return Fraction(float(best))
+
+    r = Fraction(float(np.float32(float.fromhex("0x1.010102p-8"))))
+    assert r == rn(Fraction(1, 255))
+    for v in range(256):
+        f = Fraction(np.float32(2 ** 23 + v).item()) - 2 ** 23
+        q = rn(f * r)
+        got = rn(rn(-q * 255 + f) * r + q)
+        want = np.float32(v) / np.float32(255)
+        assert got == Fraction(float(want)), v
 
 
 def _changed(change, rng, n, planes, unis, grid):

@@ -133,7 +133,7 @@ def test_pack_params_carries_each_chroma_grid(size):
         assert (int(head["ch"]), int(head["cw"])) == grid
         assert frame.chroma_grid(fmt, size) == grid
         assert (int(head["h"]), int(head["w"])) == (h, w)
-        assert not head["pad"].any()
+        assert int(head["mode"]) == frame.TILES
         assert int(head["out_fmt"]) == frame._OUT_CODES[fmt]
     assert {frame._OUT_CODES[f] for f in PLANAR} == {0}
 
