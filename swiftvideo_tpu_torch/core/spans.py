@@ -64,6 +64,9 @@ The names, and what each covers:
                            planes, the wrapper calls, the map's buffer),
                            with
 ``motion.launch``          each of its kernel launches (the ctypes call)
+``matscale.ladder``        a rendition ladder (``scale_ladder``): a batch
+                           of frames scaled to every rung, each rung a
+                           ``frame.cells`` span
 =========================  ==============================================
 
 Counters: ``barriers.uploads`` and ``barriers.upload_bytes`` (the copies
@@ -71,7 +74,8 @@ to the card and their bytes), ``video_mixer.uniform_lookups`` and
 ``video_mixer.uniform_misses`` (the video mixer's kept uniforms, and the
 lookups that had to compute them), ``frame.cell_plan_lookups`` and
 ``frame.cell_plan_misses`` (the cell wrapper's kept plans, one lookup a
-call, and the lookups that built a plan), ``frame.cell_launches`` and
+call, and the lookups that built a plan), ``frame.cell_plan_fast`` (the
+lookups that the last plan answered after its short check), ``frame.cell_launches`` and
 ``frame.cell_row_launches`` (the cell wrapper's kernel launches, and those
 that took the frame kernel's row kernel), ``motion.searches`` (the
 registry's motion searches, one a ``motion.search`` span),

@@ -49,7 +49,8 @@ tensors take the kernel or raise.  ``launches`` counts kernel launches,
 (``YUV_KERNEL`` holds the row kernel's launches too); the recorder's
 counters ``frame.cell_launches`` and ``frame.cell_row_launches`` count the
 cell wrapper's kernel launches and those of the row kernel, as the C call
-reports them.
+reports them, and ``frame.cell_plan_fast`` the plan lookups that the last
+plan answered.
 """
 
 from __future__ import annotations
@@ -551,6 +552,8 @@ def cell_plan(cell_size: Tuple[int, int], grid: Optional[Tuple[int, int]],
     plan = _recent
     if (plan is not None and plan.fits(cell_size, grid, planes, fmt)
             and np.asarray(uniforms, np.float32).tobytes() == plan.u):
+        if spans.ON:
+            spans.count("frame.cell_plan_fast")
         return plan
     w, h = int(cell_size[0]), int(cell_size[1])
     if w <= 0 or h <= 0 or w % 2 or h % 2:

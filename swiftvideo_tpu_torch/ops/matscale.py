@@ -27,16 +27,20 @@ parity-critical: one ulp moves a tap), so a plan built from composite
 uniforms samples like the plain composite's separable path.  The hat
 matrices are built once per plan and copied once per device
 (``ScalePlan.on``); the plan keeps the packed uniform it was planned from.
+
+While the recorder is on (core/spans.py) a ladder records the span
+``matscale.ladder`` around its rungs.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import spans
 from ..media.pixel import PixelFormat
 from . import frame
 from .composite import is_axis_aligned
@@ -230,3 +234,19 @@ def scale_y420p_batch(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
         np.broadcast_to(plan.uniform, (n, plan.uniform.shape[0])))
     return (y.view(n, oh, ow), u.view(n, oh // 2, ow // 2),
             v.view(n, oh // 2, ow // 2))
+
+
+def scale_ladder(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
+                 plans: Sequence[ScalePlan]
+                 ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """A rendition ladder: the batch of n y420p frames ([n, ih, iw] luma,
+    [n, ih/2, iw/2] chroma, u8 on one device) scaled to every plan's size.
+    Returns one (y, u, v) a plan, in plan order, each as
+    ``scale_y420p_batch`` shapes it.  The card: one batch scale a rung, so
+    one cell launch a rung through the rung's kept plan; the CPU: the
+    products."""
+    span = spans.ON and spans.begin("matscale.ladder")
+    rungs = [scale_y420p_batch(ys, us, vs, plan) for plan in plans]
+    if span:
+        spans.end(span)
+    return rungs

@@ -16,7 +16,9 @@ on the row kernel and, for a rotated cell, the tile kernel (0 LSB against
 the per-cell plain fold, one FrameParams per 32 cells, the row kernel's
 unchained ones two to a launch, counted by the profiler; the wall's and
 the batch scale's shapes; onto a canvas of cell rows and columns, chained
-bands included), its kept plan
+bands included; a 16-frame 1080p batch to each rung of the HLS ladder on
+the row kernel and on the tile kernel, and the five-rung ladder as five
+launches), its kept plan
 (new addresses and new uniforms, 0 LSB; the words the C entry launched
 against the plan's words on the host) and the mixing
 wall's default and per-cell paths through it (0 LSB); the upload
@@ -655,6 +657,82 @@ def test_cell_launch_matches_per_cell_plain_fold_on_card(card, case):
         card, grid=grid)
     for g, w in zip(got, want):
         assert g.is_cuda and g.shape == w.shape and torch.equal(g, w)
+
+
+# the HLS ladder's scaled sizes from a 1080p source (Apple's HLS authoring
+# specification, 16:9): 1.5x to 4.6x downscales, cells up to 720 rows, and
+# 234 rows whose chroma cell (117 rows) is odd
+HLS = [(1280, 720), (960, 540), (768, 432), (640, 360), (416, 234)]
+
+
+def _hls_plan(rung):
+    return matscale.plan_scale(identity_uniforms((1920, 1080), rung), rung,
+                               (1080, 1920))
+
+
+@pytest.mark.parametrize("rung", HLS, ids=lambda r: f"{r[0]}x{r[1]}")
+def test_hls_rung_on_the_row_and_the_tile_kernel_on_card(card, rung):
+    """A 16-frame 1080p batch to one HLS rung: the batch scale is one
+    launch of the row kernel (as the C entry counts it), the same plan on
+    the tile kernel (``on_tiles``) one launch of that, and both canvases
+    bit for bit the plain per-cell fold."""
+    n = 16
+    ys, us, vs = _y420p(np.random.default_rng(rung[1]), 1920, 1080, card, n)
+    plan = _hls_plan(rung)
+    unis = np.broadcast_to(plan.uniform, (n, 29))
+    spans.start()
+    try:
+        rows = matscale.scale_y420p_batch(ys, us, vs, plan)
+        torch.cuda.synchronize()
+    finally:
+        rec = spans.stop()
+    assert (rec.counters.get("frame.cell_launches"),
+            rec.counters.get("frame.cell_row_launches", 0)) == (1, 1)
+    kept = frame.cell_plan(rung, None, [ys, us, vs], PF.y420p, unis)
+    tiles = [torch.empty(*s, dtype=torch.uint8, device=card)
+             for s in kept.out_shapes]
+    spans.start()
+    try:
+        frame._launch_cells(kept.on_tiles(), tiles, [ys, us, vs], card)
+        torch.cuda.synchronize()
+    finally:
+        rec = spans.stop()
+    assert (rec.counters.get("frame.cell_launches"),
+            rec.counters.get("frame.cell_row_launches", 0)) == (1, 0)
+    want = composite.composite_cells_torch(
+        rung, [([ys[i], us[i], vs[i]], PF.y420p, unis[i]) for i in range(n)],
+        card)
+    for r, t, w in zip(rows, tiles, want):
+        assert r.reshape(w.shape).is_cuda and t.shape == w.shape
+        assert torch.equal(t, w)
+        assert torch.equal(r.reshape(w.shape), w)
+
+
+def test_hls_ladder_makes_five_launches_on_card(card):
+    """The five-rung ladder of a 16-frame batch: one row-kernel launch a
+    rung (the C entry's count, and the profiler's), no product, each rung
+    the rung's own batch scale."""
+    n = 16
+    batch = _y420p(np.random.default_rng(5), 1920, 1080, card, n)
+    plans = [_hls_plan(r) for r in HLS]
+    launches, products = frame.launches, matscale.calls
+    spans.start()
+    try:
+        got = matscale.scale_ladder(*batch, plans)
+        torch.cuda.synchronize()
+    finally:
+        rec = spans.stop()
+    assert (frame.launches - launches, matscale.calls) == (5, products)
+    assert (rec.counters.get("frame.cell_launches"),
+            rec.counters.get("frame.cell_row_launches", 0)) == (5, 5)
+    assert [rec.names[k] for k in rec.name].count("matscale.ladder") == 1
+    assert _launches_a_call(lambda: matscale.scale_ladder(*batch, plans), 5)
+    for rung, plan, planes in zip(HLS, plans, got):
+        w, h = rung
+        assert [tuple(p.shape) for p in planes] == [
+            (n, h, w), (n, h // 2, w // 2), (n, h // 2, w // 2)]
+        want = matscale.scale_y420p_batch(*batch, plan)
+        assert all(torch.equal(g, e) for g, e in zip(planes, want))
 
 
 @pytest.mark.parametrize("n,cols,rows,cell", [

@@ -512,3 +512,183 @@ def test_readers_of_the_motion_search():
     assert _reader("motion.self_us").read(cpu) == pytest.approx(40)
     assert _reader("motion.launch_us").read(cpu) is None
     assert _reader("motion.self_us").read(_run(None, frames=1)) is None
+
+
+# --- the rendition ladder ---------------------------------------------------
+
+def _ladder_batch(device, n=3, size=(64, 36)):
+    gen = torch.Generator().manual_seed(SEED)
+    w, h = size
+    return [torch.randint(0, 256, s, dtype=torch.uint8, generator=gen)
+            .to(device) for s in ((n, h, w), (n, h // 2, w // 2),
+                                  (n, h // 2, w // 2))]
+
+
+def _ladder_plans(size=(64, 36), rungs=((32, 18), (48, 28))):
+    from swiftvideo_tpu_torch.ops import matscale
+    from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms
+    return [matscale.plan_scale(identity_uniforms(size, r), r, size[::-1])
+            for r in rungs]
+
+
+def test_ladder_span():
+    """A ladder with the recorder on is one ``matscale.ladder`` span (the
+    CPU's products make no cell call inside it) and counts nothing; its
+    rungs are the untraced ones."""
+    from swiftvideo_tpu_torch.ops import matscale
+    batch, plans = _ladder_batch("cpu"), _ladder_plans()
+    plain = matscale.scale_ladder(*batch, plans)
+    spans.start()
+    traced = matscale.scale_ladder(*batch, plans)
+    rec = spans.stop()
+    assert all(torch.equal(a, b) for p, q in zip(plain, traced)
+               for a, b in zip(p, q))
+    assert [rec.names[k] for k in rec.name] == ["matscale.ladder"]
+    assert rec.counters == {}
+
+
+def test_cell_plan_fast_lookups_are_counted(monkeypatch):
+    """The cell wrapper's lookups that the last plan answers are counted as
+    fast: a layout repeated, then two layouts taking turns (each lookup
+    then misses the one kept plan and takes the full check)."""
+    from swiftvideo_tpu_torch.media import PixelFormat
+    from swiftvideo_tpu_torch.ops import frame
+    monkeypatch.setattr(frame, "_recent", None)
+    batch, plans = _ladder_batch("cpu"), _ladder_plans()
+    unis = [np.broadcast_to(p.uniform, (3, 29)) for p in plans]
+
+    def call(k):
+        frame.composite_cells_cuda(plans[k].out_size, batch,
+                                   PixelFormat.y420p, unis[k])
+    spans.start()
+    for k in (0, 0, 0):
+        call(k)
+    rec = spans.stop()
+    assert rec.counters["frame.cell_plan_lookups"] == 3
+    assert rec.counters["frame.cell_plan_fast"] == 2
+    spans.start()
+    for k in (1, 0, 1, 0):
+        call(k)
+    rec = spans.stop()
+    assert rec.counters["frame.cell_plan_lookups"] == 4
+    assert "frame.cell_plan_fast" not in rec.counters
+    assert rec.counters.get("frame.cell_plan_misses", 0) <= 1
+
+
+def test_ladder_off_records_nothing(monkeypatch):
+    from swiftvideo_tpu_torch.media import PixelFormat
+    from swiftvideo_tpu_torch.ops import frame, matscale
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a site reached the recorder while it was off")
+
+    monkeypatch.setattr(spans, "begin", refuse)
+    monkeypatch.setattr(spans, "count", refuse)
+    batch, plans = _ladder_batch("cpu"), _ladder_plans()
+    matscale.scale_ladder(*batch, plans)
+    for _ in range(2):
+        frame.composite_cells_cuda(plans[0].out_size, batch,
+                                   PixelFormat.y420p,
+                                   np.broadcast_to(plans[0].uniform, (3, 29)))
+    rec = spans.stop()
+    assert len(rec) == 0 and rec.counters == {}
+
+
+@pytest.mark.cuda
+def test_ladder_cells_inside_the_ladder_on_the_card():
+    """On the card each rung is a ``frame.cells`` span with its one
+    ``frame.launch`` inside the ``matscale.ladder`` span, counted as the
+    row kernel's; the rungs are the untraced ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from swiftvideo_tpu_torch.ops import matscale
+    card = torch.device("cuda", torch.cuda.current_device())
+    batch, plans = _ladder_batch(card), _ladder_plans()
+    plain = matscale.scale_ladder(*batch, plans)
+    torch.cuda.synchronize()
+    spans.start()
+    traced = matscale.scale_ladder(*batch, plans)
+    torch.cuda.synchronize()
+    rec = spans.stop()
+    assert all(torch.equal(a, b) for p, q in zip(plain, traced)
+               for a, b in zip(p, q))
+    names = [rec.names[k] for k in rec.name]
+    assert names == ["matscale.ladder"] + ["frame.cells",
+                                           "frame.launch"] * 2
+    assert rec.parent.tolist() == [-1, 0, 1, 0, 3]
+    assert not any(k.startswith("matscale.") for k in rec.counters)
+    assert {k: rec.counters.get(k) for k in (
+        "frame.cell_plan_lookups", "frame.cell_plan_fast",
+        "frame.cell_launches", "frame.cell_row_launches")} == {
+        "frame.cell_plan_lookups": 2, "frame.cell_plan_fast": None,
+        "frame.cell_launches": 2, "frame.cell_row_launches": 2}
+
+
+class _KernelTrace:
+    """A device trace holding ``launches`` frame-kernel launches of
+    ``seconds`` in all."""
+
+    def __init__(self, launches, seconds):
+        self.launches, self.seconds = launches, seconds
+
+    def kernel(self, name):
+        return (self.launches, self.seconds) \
+            if name == "frame_composite_kernel" else (0, 0.0)
+
+
+def test_readers_of_the_ladder():
+    """Two ticks of two channels, two rungs a tick."""
+    rec = _records([
+        ("matscale.ladder", 0, 100_000, -1),
+        ("frame.cells", 10_000, 40_000, 0),
+        ("frame.launch", 20_000, 30_000, 1),
+        ("frame.cells", 50_000, 90_000, 0),
+        ("frame.launch", 60_000, 75_000, 3),
+        ("matscale.ladder", 200_000, 260_000, -1),
+        ("frame.cells", 210_000, 230_000, 5),
+        ("frame.launch", 215_000, 220_000, 6),
+        ("frame.cells", 235_000, 255_000, 5),
+        ("frame.launch", 240_000, 245_000, 8)], counters={
+        "frame.cell_plan_lookups": 8, "frame.cell_plan_fast": 2,
+        "frame.cell_launches": 8, "frame.cell_row_launches": 6})
+    run = _run(rec, frames=4, trace=_KernelTrace(0, 0.0))
+    run.config = {"channels": 2}
+    # ladders 160 us less their cells' 110: 25 a tick; cells 110 less
+    # their launches' 35: 37.5 a tick; launches 17.5 a tick
+    assert _reader("ladder.self_us").read(run) == pytest.approx(25)
+    assert _reader("ladder.cells_us").read(run) == pytest.approx(37.5)
+    assert _reader("ladder.launch_us").read(run) == pytest.approx(17.5)
+    assert _reader("ladder.plan_fast_pct").read(run) == pytest.approx(25)
+    assert _reader("ladder.row_kernel_pct").read(run) == pytest.approx(75)
+    # no fast lookup at all reads 0 where the program has the ladder's span
+    none_fast = _records([("matscale.ladder", 0, 10, -1)],
+                         counters={"frame.cell_plan_lookups": 5})
+    assert _reader("ladder.plan_fast_pct").read(
+        _run(none_fast, frames=2)) == 0
+    # a program without the ladder's span: nothing to read
+    older = _run(_records([("frame.cells", 0, 10, -1)], counters={
+        "frame.cell_plan_lookups": 5}), frames=2)
+    older.config = {"channels": 2}
+    assert _reader("ladder.plan_fast_pct").read(older) is None
+    assert _reader("ladder.self_us").read(older) is None
+    assert _reader("ladder.launch_us").read(older) is None
+    # a CPU run: no device trace, no launch share
+    assert _reader("ladder.row_kernel_pct").read(
+        _run(rec, frames=4, trace=None)) is None
+
+
+def test_reader_of_the_ladder_roofline():
+    """10 frame-kernel launches recorded in 1 ms, 50 launches over 10 ticks
+    of 16 channels: 0.5 ms a tick against the configuration's bound."""
+    from svbench.bounds import ladder, peaks
+    config = {"channels": 16, "frame": {"size": [1920, 1080]},
+              "rungs": [[1280, 720], [960, 540], [768, 432], [640, 360],
+                        [416, 234]]}
+    run = _run(None, frames=160, trace=_KernelTrace(10, 1e-3))
+    run.config, run.counters = config, {"launches": 50}
+    bound = ladder.bytes_per_tick(config) / peaks.HBM_BPS
+    assert _reader("ladder_kernel.roofline_pct").read(run) == \
+        pytest.approx(bound / 0.5e-3 * 100)
+    assert bound == pytest.approx(29.879e-6, rel=1e-4)
+    run.device_trace = None
+    assert _reader("ladder_kernel.roofline_pct").read(run) is None
