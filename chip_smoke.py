@@ -30,7 +30,11 @@ each, started together) and drives the port's paths at full size:
 * the batch paths (phases 12-15): the transcode ladder (config 4, a 1080p
   frame to 1280x720, 854x480 and 640x360 through ``matscale.scale_y420p``:
   one frame-kernel launch a rung, no product or plain call, 0 LSB against
-  the plain composite), the device resampler (config 2, 128 channels of
+  the plain composite); the HLS ladder (phase 12b, the ladder cell's path:
+  16 1080p frames to Apple's five rungs by one ``matscale.scale_ladder``
+  call, three frame-kernel launches by the C entry's count and the
+  profiler's, every rung 0 LSB against the plain composite of each frame
+  and against ``scale_y420p_batch``), the device resampler (config 2, 128 channels of
   44 100 samples, 44.1 -> 48 kHz, within 1e-4 of the host route with equal
   counts), the SRC stage's device route (pts and counts equal to the host
   route's), and the mixing wall (config 5, 64 1080p streams onto a
@@ -149,6 +153,10 @@ BYTE_DOT_OPCODES = ("IDP",)        # __dp4a: a 4-byte dot product into an accumu
 # second at 44.1 kHz), the mixing wall (config 5: 64 1080p streams onto a
 # 1920x1088 canvas, 8x8 tiles of 240x136, 800 stereo samples a stream)
 LADDER_RUNGS = ((1280, 720), (854, 480), (640, 360))
+# the HLS ladder (the ladder1080-hls cell's path): channels a tick and
+# Apple's five 16:9 rungs
+HLS_CHANNELS = 16
+HLS_RUNGS = ((1280, 720), (960, 540), (768, 432), (640, 360), (416, 234))
 RESAMPLE_CHANNELS, RESAMPLE_IN = 128, 44100
 WALL_STREAMS, WALL_CANVAS, WALL_SAMPLES = 64, (1920, 1088), 800
 # the wall's ticks are timed over a ring of this many distinct input batches
@@ -574,6 +582,110 @@ def grid_sample_y420p(planes, grids):
     return out if y.dim() == 3 else [t[0] for t in out]
 
 
+def hls_ladder_phase(dev, smi, plain_scale):
+    """Phase 12b: the ladder cell's path, ``HLS_CHANNELS`` random 1080p
+    frames to every rung of ``HLS_RUNGS`` by one ``matscale.scale_ladder``
+    call (``frame.composite_ladder_cuda``: one kept plan, one C call).  The
+    call must make 3 K1 launches (the C entry's count, and the profiler's
+    device activities a call, less what a profile lost), no product or
+    plain call, and every rung must equal, at 0 LSB, the plain composite
+    (``plain_scale``) of each frame and ``scale_y420p_batch`` of that rung.
+    Returns the kernels line's row."""
+    from swiftvideo_tpu_torch.core import spans
+    from swiftvideo_tpu_torch.ops import composite, frame, matscale
+    from swiftvideo_tpu_torch.ops.uniforms import identity_uniforms
+    n = HLS_CHANNELS
+    ys, us, vs = wall_batches(dev, n, 23, 1)[0]
+    plans = [matscale.plan_scale(identity_uniforms((W, H), r), r, (H, W))
+             for r in HLS_RUNGS]
+    if any(p is None for p in plans):
+        fail("the HLS rungs have no scale plan")
+
+    def hls():
+        return matscale.scale_ladder(ys, us, vs, plans)
+
+    def hls_plain():
+        return [[torch.stack(t) for t in zip(*(
+            plain_scale([ys[i], us[i], vs[i]], (W, H), r)
+            for i in range(n)))] for r in HLS_RUNGS]
+
+    grids = [sample_grids(p, (H, W), dev, n) for p in plans]
+
+    def hls_library():
+        return [grid_sample_y420p([ys, us, vs], g) for g in grids]
+
+    hls()
+    torch.cuda.synchronize()
+    frame.launches = composite.calls = matscale.calls = 0
+    spans.start()
+    try:
+        outs = hls()
+        torch.cuda.synchronize()
+    finally:
+        rec = spans.stop()
+    counts = (frame.launches, matscale.calls, composite.calls)
+    made = (rec.counters.get("frame.cell_launches", 0),
+            rec.counters.get("frame.cell_row_launches", 0))
+    fast = rec.counters.get("frame.cell_plan_fast", 0)
+    dev_ms, acts = device_total_ms(hls)
+    if (counts != (3, 0, 0) or made != (3, 3) or fast != 1
+            or not made[0] - 1 < acts <= made[0]):
+        fail(f"the HLS ladder: {counts[0]} K1 launches (want 3), "
+             f"{counts[1]} product calls, {counts[2]} plain composites, "
+             f"(launches, row-kernel launches) by the C entry {made} (want "
+             f"(3, 3)), {fast} lookups the kept plan answered (want 1), the "
+             f"profiler's {acts} device activities a call (want the counted "
+             f"{made[0]}, less what a profile lost)")
+    parts, err = [], 0
+    for r, p, out, want, lib in zip(HLS_RUNGS, plans, outs, hls_plain(),
+                                    hls_library()):
+        w, h = r
+        batch = matscale.scale_y420p_batch(ys, us, vs, p)
+        p_err, p_above = max_err(out, want)
+        b_err, b_above = max_err(out, batch)
+        l_err, l_at1 = max_err(lib, want)
+        err = max(err, p_err, b_err)
+        if (p_err > LSB or p_above or b_err or b_above or l_err > 1
+                or [tuple(t.shape) for t in out]
+                != [(n, h, w), (n, h // 2, w // 2), (n, h // 2, w // 2)]
+                or not all(t.device == dev and t.dtype == torch.uint8
+                           for t in out)):
+            fail(f"HLS rung {w}x{h}: vs plain err {p_err} ({p_above} px "
+                 f"differ), vs scale_y420p_batch err {b_err} ({b_above} px "
+                 f"differ), grid_sample vs plain {l_err}, shapes "
+                 f"{[tuple(t.shape) for t in out]}")
+        parts.append(f"{w}x{h} err {p_err} vs plain, {b_err} vs the batch "
+                     f"scale, grid_sample err {l_err} ({l_at1} px at 1 LSB)")
+    ms = timed_ms(hls, reps=10, batch=5)
+    host = host_us(hls, n=20)
+    plain_ms = timed_ms(hls_plain, reps=2, batch=1, warmup=1)
+    lib_ms = timed_ms(hls_library, reps=5, batch=2)
+    nbytes = n * (tap_bytes(plans, (H, W))
+                  + sum(y420p_bytes(*r) for r in HLS_RUNGS))
+    bms, by = bound(nbytes, 0, 1.0)
+    print(f"[12b HLS ladder, the ladder cell's path: {n} x {W}x{H} y420p -> "
+          + ", ".join(f"{w}x{h}" for w, h in HLS_RUNGS)
+          + f" by one matscale.scale_ladder call, tol {LSB} LSB vs plain and "
+          f"vs scale_y420p_batch] " + "; ".join(parts)
+          + f" | {counts[0]} K1 launches (C entry {made[0]}, row kernel "
+          f"{made[1]}; profiler {acts:.2f} a call), {counts[1]} product "
+          f"calls, {counts[2]} plain composites, kept plan {fast} | call "
+          f"{ms:.4f} ms, device {dev_ms:.4f} ms, host {host:.1f} us | the "
+          f"function: {nbytes / 1e6:.3f} MB of tap sectors (each once) and "
+          f"rungs, byte bound {bms:.6f} ms, share {bms / dev_ms:.1%} | plain "
+          f"{plain_ms:.4f} ms | grid_sample (library yardstick) call "
+          f"{lib_ms:.4f} ms | {smi}", flush=True)
+    return {"name": f"frame_composite (K1: HLS ladder, {n} x {W}x{H} -> "
+                    + ", ".join(f"{w}x{h}" for w, h in HLS_RUNGS)
+                    + ", one scale_ladder call)",
+            "route": "cuda",
+            "source": "swiftvideo_tpu_torch/csrc/frame_composite.cu",
+            "replaces": REPLACES["K1"], "launches": counts[0],
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "host_us": host, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
 def batch_phases(dev, smi, rng):
     """Phases 12-15: the batch paths of configs 4, 2 and 5 through the
     port's entry points on ``dev``.  Returns the kernels line's rows of
@@ -678,6 +790,8 @@ def batch_phases(dev, smi, rng):
         "max_abs_err": lad_err, "ms": lad_ms, "device_ms": lad_dev,
         "plain_ms": lad_plain_ms, "bound_ms": lad_fn, "bound_by": lad_fn_by,
         "library_ms": lad_lib_ms}
+
+    hls_row = hls_ladder_phase(dev, smi, plain_scale)
 
     # phase 13: the device resampler (config 2), 44.1 -> 48 kHz
     x = np.random.default_rng(13).standard_normal(
@@ -1128,7 +1242,7 @@ def batch_phases(dev, smi, rng):
                "max_abs_err": max(mix_err, order_err), "ms": mix_ms,
                "device_ms": mix_dev, "plain_ms": mix_plain_ms,
                "bound_ms": mix_bms, "bound_by": mix_by, "library_ms": None}
-    return [ladder_row, cell_row, tick_row, mix_row]
+    return [ladder_row, hls_row, cell_row, tick_row, mix_row]
 
 
 def pyramid_frames(h, w, seed, dev):

@@ -57,16 +57,18 @@ The names, and what each covers:
 ``video_mixer.emit``       the emission of the mixed frame downstream
 ``wall.step``              a ``MixingWall.step``, with
 ``wall.audio``             its audio mix, and
-``frame.cells``            the cell wrapper (``composite_cells_cuda``),
-                           whose launches are ``frame.launch`` spans
+``frame.cells``            the cell wrapper (``composite_cells_cuda``, or
+                           ``composite_ladder_cuda`` for every rung of
+                           a ladder), whose launches are
+                           ``frame.launch`` spans
 ``motion.search``          a motion search through the compute registry
                            (``run_compute_kernel``'s motion branch: the
                            planes, the wrapper calls, the map's buffer),
                            with
 ``motion.launch``          each of its kernel launches (the ctypes call)
 ``matscale.ladder``        a rendition ladder (``scale_ladder``): a batch
-                           of frames scaled to every rung, each rung a
-                           ``frame.cells`` span
+                           of frames scaled to every rung, on the card
+                           one ``frame.cells`` span for all of them
 =========================  ==============================================
 
 Counters: ``barriers.uploads`` and ``barriers.upload_bytes`` (the copies
@@ -74,7 +76,7 @@ to the card and their bytes), ``video_mixer.uniform_lookups`` and
 ``video_mixer.uniform_misses`` (the video mixer's kept uniforms, and the
 lookups that had to compute them), ``frame.cell_plan_lookups`` and
 ``frame.cell_plan_misses`` (the cell wrapper's kept plans, one lookup a
-call, and the lookups that built a plan), ``frame.cell_plan_fast`` (the
+call, a ladder's included, and the lookups that built a plan), ``frame.cell_plan_fast`` (the
 lookups that the last plan answered after its short check), ``frame.cell_launches`` and
 ``frame.cell_row_launches`` (the cell wrapper's kernel launches, and those
 that took the frame kernel's row kernel), ``motion.searches`` (the

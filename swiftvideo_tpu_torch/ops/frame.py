@@ -31,7 +31,11 @@ offset into the batch) are built once and kept as a ``CellPlan``
 (``cell_plan``); a call that repeats the layout checks its planes against
 the plan and hands the plan and six base addresses to one C call, which
 adds the bases and makes the launches (``cell_params`` gives the same
-words on the host).  A cell launch whose sources are all axis-aligned,
+words on the host).  ``composite_ladder_cuda`` does the same for every
+rung of a rendition ladder at once, each rung a one-column layout of its
+own cell size and uniform: one kept ``LadderPlan`` (``ladder_plan``) holds
+all the rungs' launches onto three flat canvases, and one C call makes
+them.  A cell launch whose sources are all axis-aligned,
 each in its own cell, is marked in its mode word for the row kernel
 (``cell_mode``, decided once per plan), which stages each cell's tap rows
 in shared memory with bulk copies.  The C call decides what the kernel's
@@ -49,7 +53,8 @@ tensors take the kernel or raise.  ``launches`` counts kernel launches,
 (``YUV_KERNEL`` holds the row kernel's launches too); the recorder's
 counters ``frame.cell_launches`` and ``frame.cell_row_launches`` count the
 cell wrapper's kernel launches and those of the row kernel, as the C call
-reports them, and ``frame.cell_plan_fast`` the plan lookups that the last
+reports them, and ``frame.cell_plan_fast`` the plan lookups (one a
+``composite_cells_cuda`` or ``composite_ladder_cuda`` call) that the last
 plan answered.
 """
 
@@ -531,6 +536,19 @@ _Made = ctypes.c_int * 2
 _recent: Optional[CellPlan] = None
 
 
+def _cell_uniforms(cell_size, uniforms, n: int):
+    """``cell_size`` as (w, h) and ``uniforms`` as [n, 29] float32 rows,
+    raising for a cell of odd or non-positive size or another count of
+    rows."""
+    w, h = int(cell_size[0]), int(cell_size[1])
+    if w <= 0 or h <= 0 or w % 2 or h % 2:
+        raise ValueError(f"cells of {cell_size} need even, positive sizes")
+    u = np.ascontiguousarray(uniforms, np.float32).reshape(-1, 29)
+    if len(u) != n:
+        raise ValueError(f"{len(u)} uniform rows, not {n}")
+    return (w, h), u
+
+
 @lru_cache(maxsize=64)
 def _plan(cell, grid_arg, fmt, shapes, strides, device, u) -> CellPlan:
     if spans.ON:
@@ -555,13 +573,8 @@ def cell_plan(cell_size: Tuple[int, int], grid: Optional[Tuple[int, int]],
         if spans.ON:
             spans.count("frame.cell_plan_fast")
         return plan
-    w, h = int(cell_size[0]), int(cell_size[1])
-    if w <= 0 or h <= 0 or w % 2 or h % 2:
-        raise ValueError(f"cells of {cell_size} need even, positive sizes")
     dev, n = _check_batch(planes, fmt)
-    u = np.ascontiguousarray(uniforms, np.float32).reshape(-1, 29)
-    if len(u) != n:
-        raise ValueError(f"{len(u)} uniform rows for {n} frames")
+    (w, h), u = _cell_uniforms(cell_size, uniforms, n)
     cols, rows = (1, n) if grid is None else (int(grid[0]), int(grid[1]))
     if cols <= 0 or rows <= 0 or cols * rows < n:
         raise ValueError(f"a grid of {cols}x{rows} cells holds fewer than "
@@ -586,12 +599,132 @@ def cell_params(cell_size: Tuple[int, int], grid: Tuple[int, int], planes,
                 .params(outs, planes))
 
 
-def _launch_cells(plan: CellPlan, outs, planes, dev: torch.device,
+# each rung's block of a ladder canvas starts on this many bytes, as a fresh
+# torch.empty does on the card
+LADDER_ALIGN = 512
+
+
+def launch_order(sizes) -> List[int]:
+    """The order of a ladder's rungs (``sizes`` = [(w, h)]) in its launch
+    table (``LadderPlan``): by cell width, widest first, with the rungs of
+    the widest width last, ties in rung order.  A stopgap tied to
+    ``kMerge`` = 2 in ``sv_frame_cells``, which merges consecutive launches
+    whatever their cell widths: once the C entry merges only launches of
+    one shared-memory size, the table can keep rung order and this goes."""
+    widest = max(w for w, _h in sizes)
+    return sorted(range(len(sizes)),
+                  key=lambda k: (sizes[k][0] == widest, -sizes[k][0]))
+
+
+class LadderPlan:
+    """The launches of a rendition ladder, kept for every call that repeats
+    it: each rung's ``CellPlan`` (one column of n cells of the rung's size,
+    every frame with the rung's packed uniform), their FrameParams one
+    rung after another in ``order`` (``table``, ``words`` and ``ptr`` as
+    ``CellPlan`` keeps them), each rung's target pointers shifted to its
+    block of three flat canvases, one a plane (``sizes`` bytes each).  The
+    blocks lie in rung order, each on ``LADDER_ALIGN`` bytes, and
+    ``views`` gives rung k's plane j as ``as_strided`` arguments: [n, h, w]
+    luma, [n, h / 2, w / 2] chroma.  The key: the format, each plane's
+    shape and strides (u8), the device and each rung's ((w, h), packed
+    uniform's float32 bytes).
+
+    ``order`` (``launch_order``) puts the rungs by cell width, widest
+    first, but the widest last: ``sv_frame_cells`` merges consecutive
+    launches two to a row-kernel launch, whose blocks all take the shared
+    memory of its widest cell, so a rung merged with a wider one runs
+    fewer blocks at once.  The widest rung then runs alone and the others
+    merge with their nearest widths (PERF.md: 262 against 280 us a tick of
+    K1 in rung order on the HLS ladder)."""
+
+    __slots__ = ("fmt", "device", "rungs", "plans", "order", "offsets",
+                 "sizes", "views", "table", "words", "ptr")
+
+    def __init__(self, fmt, shapes, strides, device, rungs):
+        self.fmt, self.device, self.rungs = fmt, device, rungs
+        n = shapes[0][0]
+        self.plans = [CellPlan(size, None, fmt, shapes, strides, device,
+                               u * n) for size, u in rungs]
+        at = [0, 0, 0]
+        self.offsets, self.views = [], []
+        for plan in self.plans:
+            self.offsets.append(tuple(at))
+            views = []
+            for k, (rows, w) in enumerate(plan.out_shapes):
+                views.append(((n, rows // n, w), (rows // n * w, w, 1), at[k]))
+                at[k] += -(-rows * w // LADDER_ALIGN) * LADDER_ALIGN
+            self.views.append(tuple(views))
+        self.sizes = tuple(at)
+        self.order = launch_order([size for size, _u in rungs])
+        table = np.concatenate([self.plans[k].table for k in self.order])
+        table["head"]["out"] += np.repeat(
+            np.array([self.offsets[k] for k in self.order], np.uint64),
+            [len(self.plans[k].table) for k in self.order], axis=0)
+        self._keep(table)
+
+    _keep = CellPlan._keep
+    params = CellPlan.params
+
+    def fits(self, planes, fmt, rungs) -> bool:
+        """Whether a call's planes and format are the plan's (as
+        ``CellPlan.fits`` tests them) and its rungs, in order, the plan's
+        sizes and packed uniforms by value."""
+        if len(rungs) != len(self.rungs) or not self.plans[0].fits(
+                self.plans[0].cell, None, planes, fmt):
+            return False
+        for (size, u), (cell, kept) in zip(rungs, self.rungs):
+            if (tuple(size) != cell
+                    or np.asarray(u, np.float32).tobytes() != kept):
+                return False
+        return True
+
+
+# the last ladder plan a lookup returned
+_recent_ladder: Optional[LadderPlan] = None
+
+
+@lru_cache(maxsize=16)
+def _ladder(fmt, shapes, strides, device, rungs) -> LadderPlan:
+    if spans.ON:
+        spans.count("frame.cell_plan_misses")
+    return LadderPlan(fmt, shapes, strides, device, rungs)
+
+
+def ladder_plan(planes, fmt: PixelFormat, rungs) -> LadderPlan:
+    """The kept plan of a call of ``composite_ladder_cuda`` (its arguments
+    as it takes them), one cell-plan lookup: a call whose planes, format
+    and rungs (sizes and uniforms by value, in order) are the last ladder
+    plan's takes it after checking just that; any other goes through every
+    check ``cell_plan`` makes of each rung, raising what it raises, then
+    takes the plan of its key, built on first use."""
+    global _recent_ladder
+    if spans.ON:
+        spans.count("frame.cell_plan_lookups")
+    planes, rungs = list(planes), list(rungs)
+    plan = _recent_ladder
+    if plan is not None and plan.fits(planes, fmt, rungs):
+        if spans.ON:
+            spans.count("frame.cell_plan_fast")
+        return plan
+    if not rungs:
+        raise ValueError("a ladder needs at least one rung")
+    dev, _n = _check_batch(planes, fmt)
+    keyed = []
+    for size, uniform in rungs:
+        cell, u = _cell_uniforms(size, uniform, 1)
+        keyed.append((cell, u.tobytes()))
+    plan = _recent_ladder = _ladder(
+        fmt, tuple(tuple(p.shape) for p in planes),
+        tuple(p.stride() for p in planes), dev, tuple(keyed))
+    return plan
+
+
+def _launch_cells(plan, outs, planes, dev: torch.device,
                   echo: Optional[np.ndarray] = None) -> None:
-    """Make ``plan``'s launches onto the canvas planes ``outs`` from the
-    batch ``planes`` with one C call, and count the kernel launches it
-    reports; ``echo`` ([launches, words] u64) receives each launch's words
-    as launched."""
+    """Make ``plan``'s launches (a ``CellPlan`` or a ``LadderPlan``) onto
+    the canvas planes ``outs`` from the batch ``planes`` with one C call,
+    and count the kernel launches it reports; ``echo`` ([launches, words]
+    u64) receives each launch's words as launched."""
     global launches
     bases = [p.data_ptr() for p in planes] + [0] * (3 - len(planes))
     made = _Made()
@@ -702,3 +835,31 @@ def composite_cells_cuda(cell_size: Tuple[int, int], planes,
     if span:
         spans.end(span)
     return outs
+
+
+def composite_ladder_cuda(planes, fmt: PixelFormat, rungs
+                          ) -> List[Tuple[torch.Tensor, ...]]:
+    """Composite every frame of a batch — ``planes`` as
+    ``composite_cells_cuda`` takes them — alone onto a cell of each rung
+    of a ladder, ``rungs`` = [((w, h), packed uniform [29])]: rung k's
+    canvas is bit for bit ``composite_cells_cuda``'s with that cell size
+    and that uniform for every frame.  Returns one (y, u, v) a rung, in
+    rung order, [n, h, w] and two [n, h / 2, w / 2] u8 views on the
+    frames' device.  The rungs share storage, one flat canvas a plane: a
+    caller that keeps a rung past the next call clones it, or it keeps
+    the whole ladder's canvases alive.  One kept plan (``ladder_plan``),
+    three allocations and one C call for every rung's launches; the card
+    only (the CPU takes ``composite_cells_cuda`` a rung)."""
+    span = spans.ON and spans.begin("frame.cells")
+    planes = list(planes)
+    plan = ladder_plan(planes, fmt, rungs)
+    dev = plan.device
+    if dev.type != "cuda":
+        raise ValueError(f"frame kernel runs on cuda, not {dev}")
+    flats = [torch.empty(s, dtype=torch.uint8, device=dev)
+             for s in plan.sizes]
+    _launch_cells(plan, flats, planes, dev)
+    if span:
+        spans.end(span)
+    return [tuple(f.as_strided(*v) for f, v in zip(flats, views))
+            for views in plan.views]

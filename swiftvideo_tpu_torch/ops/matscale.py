@@ -4,13 +4,14 @@ mixing wall's default cells.
 On the card a scale is the frame kernel (ops/frame.py): ``scale_y420p`` is
 one ``composite_frame_cuda`` launch with the plan's packed uniform, and
 ``scale_y420p_batch`` one cell launch (``composite_cells_cuda``) per 32
-frames, one cell a frame.  That is golden's bilinear sample itself, bit for
-bit against the plain composite.  On the CPU both are two dense products,
-``out = V @ X @ H``: ``V`` [oh, ih] and ``H`` [iw, ow] are two-tap
-clamp-to-edge hat matrices built on the host from the plan's geometry and
-``X`` is the source plane as float32, as ``swiftvideo_tpu/ops/matscale.py``
-computes them outside any Pallas kernel (the TPU's matrix unit suits
-them).  ``products`` runs them on any device; on the card only as a
+frames, one cell a frame; ``scale_ladder`` makes every rung's cell
+launches with one call (``composite_ladder_cuda``).  That is golden's
+bilinear sample itself, bit for bit against the plain composite.  On the
+CPU both are two dense products, ``out = V @ X @ H``: ``V`` [oh, ih] and
+``H`` [iw, ow] are two-tap clamp-to-edge hat matrices built on the host
+from the plan's geometry and ``X`` is the source plane as float32, as
+``swiftvideo_tpu/ops/matscale.py`` computes them outside any Pallas kernel
+(the TPU's matrix unit suits them).  ``products`` runs them on any device; on the card only as a
 comparison.  ``calls`` counts the product calls.
 
 Precision: the products run in full float32 and ``check_fp32_matmul``
@@ -242,11 +243,23 @@ def scale_ladder(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
     """A rendition ladder: the batch of n y420p frames ([n, ih, iw] luma,
     [n, ih/2, iw/2] chroma, u8 on one device) scaled to every plan's size.
     Returns one (y, u, v) a plan, in plan order, each as
-    ``scale_y420p_batch`` shapes it.  The card: one batch scale a rung, so
-    one cell launch a rung through the rung's kept plan; the CPU: the
-    products."""
+    ``scale_y420p_batch`` shapes it and bit for bit what it gives.  The
+    card: one cell-wrapper call for every rung
+    (``frame.composite_ladder_cuda``: one kept plan, one C call), whose
+    rungs share storage, one buffer a plane: clone a rung kept past the
+    tick, or it holds the whole ladder's canvases; the CPU: the products,
+    one batch scale a rung."""
     span = spans.ON and spans.begin("matscale.ladder")
-    rungs = [scale_y420p_batch(ys, us, vs, plan) for plan in plans]
+    if ys.device.type == "cpu" or not plans:
+        rungs = [scale_y420p_batch(ys, us, vs, plan) for plan in plans]
+    else:
+        source = plans[0].vy.shape[1], plans[0].hy.shape[0]
+        if any((p.vy.shape[1], p.hy.shape[0]) != source for p in plans):
+            raise ValueError("the ladder's plans scale from different sizes")
+        _fits((ys, us, vs), plans[0])
+        rungs = frame.composite_ladder_cuda(
+            [ys, us, vs], PixelFormat.y420p,
+            [(plan.out_size, plan.uniform) for plan in plans])
     if span:
         spans.end(span)
     return rungs

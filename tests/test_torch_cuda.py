@@ -17,8 +17,9 @@ the per-cell plain fold, one FrameParams per 32 cells, the row kernel's
 unchained ones two to a launch, counted by the profiler; the wall's and
 the batch scale's shapes; onto a canvas of cell rows and columns, chained
 bands included; a 16-frame 1080p batch to each rung of the HLS ladder on
-the row kernel and on the tile kernel, and the five-rung ladder as five
-launches), its kept plan
+the row kernel and on the tile kernel, and the five-rung ladder, and a
+tiny one with an odd chroma cell, as one call of the ladder's kept plan,
+two rungs a launch), its kept plan
 (new addresses and new uniforms, 0 LSB; the words the C entry launched
 against the plan's words on the host) and the mixing
 wall's default and per-cell paths through it (0 LSB); the upload
@@ -708,13 +709,28 @@ def test_hls_rung_on_the_row_and_the_tile_kernel_on_card(card, rung):
         assert torch.equal(r.reshape(w.shape), w)
 
 
-def test_hls_ladder_makes_five_launches_on_card(card):
-    """The five-rung ladder of a 16-frame batch: one row-kernel launch a
-    rung (the C entry's count, and the profiler's), no product, each rung
-    the rung's own batch scale."""
+# the ladders through matscale.scale_ladder: (source size, rungs, kernel
+# launches a ladder), the row kernel taking two rungs a launch; the tiny
+# ladder's last rung has a 13x7 chroma cell
+_LADDERS = {
+    "hls": ((1920, 1080), HLS, 3),
+    "tiny": ((96, 54), [(64, 36), (48, 28), (26, 14)], 2),
+}
+
+
+@pytest.mark.parametrize("name", list(_LADDERS))
+def test_ladder_makes_one_call_on_card(card, name):
+    """A ladder of a 16-frame batch: one ``frame.cells`` span with its one
+    ``frame.launch`` inside ``matscale.ladder``, the rungs' launches
+    merged two to a row-kernel launch (the C entry's count, and the
+    profiler's), no product, each rung bit for bit the rung's own batch
+    scale and the plain reference (``svbench/reference/ladder.py``)."""
+    from svbench.reference import ladder as ref_ladder
+    size, rungs, made = _LADDERS[name]
     n = 16
-    batch = _y420p(np.random.default_rng(5), 1920, 1080, card, n)
-    plans = [_hls_plan(r) for r in HLS]
+    batch = _y420p(np.random.default_rng(5), *size, card, n)
+    plans = [matscale.plan_scale(identity_uniforms(size, r), r, size[::-1])
+             for r in rungs]
     launches, products = frame.launches, matscale.calls
     spans.start()
     try:
@@ -722,17 +738,23 @@ def test_hls_ladder_makes_five_launches_on_card(card):
         torch.cuda.synchronize()
     finally:
         rec = spans.stop()
-    assert (frame.launches - launches, matscale.calls) == (5, products)
+    assert (frame.launches - launches, matscale.calls) == (made, products)
     assert (rec.counters.get("frame.cell_launches"),
-            rec.counters.get("frame.cell_row_launches", 0)) == (5, 5)
-    assert [rec.names[k] for k in rec.name].count("matscale.ladder") == 1
-    assert _launches_a_call(lambda: matscale.scale_ladder(*batch, plans), 5)
-    for rung, plan, planes in zip(HLS, plans, got):
+            rec.counters.get("frame.cell_row_launches", 0)) == (made, made)
+    names = [rec.names[k] for k in rec.name]
+    assert names == ["matscale.ladder", "frame.cells", "frame.launch"]
+    assert rec.parent.tolist() == [-1, 0, 1]
+    assert _launches_a_call(lambda: matscale.scale_ladder(*batch, plans),
+                            made)
+    for rung, plan, planes in zip(rungs, plans, got):
         w, h = rung
         assert [tuple(p.shape) for p in planes] == [
             (n, h, w), (n, h // 2, w // 2), (n, h // 2, w // 2)]
         want = matscale.scale_y420p_batch(*batch, plan)
         assert all(torch.equal(g, e) for g, e in zip(planes, want))
+        for c in range(n):
+            ref = ref_ladder.rung([p[c] for p in batch], rung)
+            assert all(torch.equal(g[c], e) for g, e in zip(planes, ref))
 
 
 @pytest.mark.parametrize("n,cols,rows,cell", [
