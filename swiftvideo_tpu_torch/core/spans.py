@@ -40,7 +40,10 @@ The names, and what each covers:
                            and on its clock tick (its re-emission is not)
 ``stage.picture_animator`` a ``PictureAnimator`` placing a picture
 ``stage.sound_animator``   a ``SoundAnimator`` placing an audio sample
-``stage.src``              an ``AudioSampleRateConversion``
+``stage.src``              an ``AudioSampleRateConversion``, with
+``resample.process``       its resampler's ``process`` call, with
+``resample.device``        the device route's copy to the device, the
+                           product's enqueue and the wait on its result
 ``stats.timer``            a ``StatsReport``'s start or end of a timer, or
                            its adding of a sample
 ``stats.recompute``        a ``StatsReport``'s periodic summary
@@ -83,7 +86,11 @@ that took the frame kernel's row kernel), ``motion.searches`` (the
 registry's motion searches, one a ``motion.search`` span),
 ``wall.audio_mixes`` and ``wall.audio_kernel_mixes`` (the wall's audio
 mixes, one a ``wall.audio`` span, and those that launched the wall's mix
-kernel).
+kernel), ``resample.calls`` and ``resample.device_calls`` (the
+resampler's ``process`` calls, one a ``resample.process`` span, and those
+that ran the product on the device, one a ``resample.device`` span),
+``resample.in_samples`` and ``resample.out_samples`` (the samples a
+channel those calls took and emitted).
 
 A site reads:
 

@@ -21,6 +21,14 @@ sampleRateConversionTests.swift:26-58).
 Quality: default 24 taps/phase Kaiser beta 12 gives > 90 dB stopband —
 within the tolerance band of soxr's 24-bit precision setting for the
 benchmark configs (BASELINE.md config 2).
+
+While the recorder is on (core/spans.py) each ``process`` call is a
+``resample.process`` span, and on the device route the copy to the
+device, the product's enqueue and the wait on its result are a
+``resample.device`` span inside it; the counters ``resample.calls``,
+``resample.device_calls`` (the calls that ran a device product),
+``resample.in_samples`` and ``resample.out_samples`` (samples a channel
+fed and emitted) add up the calls.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core import spans
 from ..media.audio import is_planar
 from .fp32 import check_fp32_matmul
 from .registry import make_compute_context
@@ -134,9 +143,19 @@ class PolyphaseResampler:
     def process(self, x: np.ndarray) -> np.ndarray:
         """Feed [C, n] samples; return [C, m] resampled output (possibly
         m == 0 while the filter fills)."""
+        span = spans.ON and spans.begin("resample.process")
         x = np.asarray(x, dtype=np.float32)
         if x.ndim == 1:
             x = x[None, :]
+        out = self._resample(x, span)
+        if span:
+            spans.count("resample.calls")
+            spans.count("resample.in_samples", x.shape[1])
+            spans.count("resample.out_samples", out.shape[1])
+            spans.end(span)
+        return out
+
+    def _resample(self, x: np.ndarray, span) -> np.ndarray:
         if self._state is None:
             # pre-pad with zeros so cycle 0's window (which may reach
             # negative indices via r0) is defined; output starts aligned
@@ -158,10 +177,15 @@ class PolyphaseResampler:
             check_fp32_matmul()
             # the FIFO's span from the first window's start to the last
             # window's end: exactly ncycles windows
-            span = np.ascontiguousarray(
+            window = np.ascontiguousarray(
                 st.buffer[:, int(starts[0]):int(starts[-1]) + self.R])
-            out = windows_matmul_torch(torch.from_numpy(span).to(self.device),
-                                       self._h_t, self.M).cpu().numpy()
+            device = span and spans.begin("resample.device")
+            out = windows_matmul_torch(
+                torch.from_numpy(window).to(self.device), self._h_t,
+                self.M).cpu().numpy()
+            if device:
+                spans.end(device)
+                spans.count("resample.device_calls")
         else:
             out = _windows_matmul_np(st.buffer, self.H, starts)
         out = out.reshape(self.channels, ncycles * self.L)

@@ -8,8 +8,9 @@ plain version (bit-exact where every sum is exact) and its in-order
 float32 contract (bit-exact for every gain), at the wall's shape and at
 sample counts that leave a tail; the batch paths: the ladder's products (<= 1 LSB against the plain
 composite, and raising under the TF32 switches), the batched fold (exact),
-the device resampler (< 1e-4 against the host route) and the SRC stage's
-bookkeeping; the ladder's rungs (one frame-kernel launch each, 0 LSB
+the device resampler (< 1e-4 against the host route), the SRC stage's
+bookkeeping and the audio ingest's 64 stages against the benchmark's plain
+reference (counts and pts exact, samples within 1 LSB); the ladder's rungs (one frame-kernel launch each, 0 LSB
 against the plain composite; the products, kept as a comparison, within 1
 LSB and raising under the TF32 switches), the frame kernel's cell launch
 on the row kernel and, for a rotated cell, the tile kernel (0 LSB against
@@ -30,7 +31,7 @@ plain version), exact for motion vectors and audio.  The frame cases cover
 every target the kernel writes (packed 4:2:2 through the registry), both of the kernels' map paths (the row side once per run for axis-aligned
 sources, every map per pixel for rotated ones), downscales and upscales,
 ragged runs, stacks longer than one launch and chained targets.  Imports
-only the port."""
+the port and the benchmark's plain references."""
 
 import numpy as np
 import pytest
@@ -530,6 +531,47 @@ def test_src_device_route_bookkeeping_on_card(card):
         assert a.number_samples() == b.number_samples()
         assert (a.pts().value, a.pts().scale) == (b.pts().value, b.pts().scale)
         assert np.abs(a.data()[0].astype(int) - b.data()[0].astype(int)).max() <= 1
+
+
+def test_src_stages_of_the_ingest_against_the_reference_on_card(card):
+    """The audio ingest's shape: 64 stereo publishers, 20 f32p frames of
+    1024 samples each at 44.1 kHz, every stream through its own SRC stage
+    on the card route to 48 kHz s16i.  Every emitted sample's count and pts
+    exact against the benchmark's plain reference, its samples within 1
+    LSB (the card's GEMM and the reference sum the same 24 float32
+    products in different orders)."""
+    from svbench.reference import resample as ref
+    d = ref.design(44100, 48000)
+    rng = np.random.default_rng(64)
+    frames, size = 20, 1024
+    for s in range(64):
+        stage = AudioSampleRateConversion(48000, 2, AudioFormat.s16i,
+                                          use_device=True, device=card)
+        t = np.arange(frames * size) / 44100.0
+        x = (0.18 * np.sin(2 * np.pi * rng.uniform(50, 18000, (2, 1)) * t)
+             + 0.01 * rng.standard_normal((2, frames * size)))
+        x[:, rng.integers(0, x.shape[1], 4)] = 1.3
+        x = x.astype(np.float32)
+        pts0 = int(rng.integers(0, 2**31))
+        pts = ref.first_pts(pts0, 44100, 48000)
+        xd = torch.from_numpy(x).to(card)
+        for k in range(frames):
+            got = stage(AudioSample(
+                buffers=tuple(np.ascontiguousarray(
+                    x[:, k * size:(k + 1) * size])),
+                frequency=44100, channels=2, format=AudioFormat.f32p,
+                sample_count=size, pts_value=TimePoint(pts0 + k * size,
+                                                       44100),
+                id_asset=f"publisher{s}", id_workspace="ingest")).value()
+            n0, n1 = ref.emitted(d, k * size), ref.emitted(d, (k + 1) * size)
+            assert got.number_samples() == n1 - n0 in (960, 1120)
+            assert (got.pts().value, got.pts().scale) == (pts, 48000)
+            want = ref.to_s16(ref.outputs(d, xd, n0, n1)).cpu().numpy()
+            have = got.data()[0]
+            assert have.shape == want.shape
+            assert np.abs(have.astype(np.int32) - want).max() <= 1
+            pts += n1 - n0
+    assert stage._resampler.device.type == "cuda"
 
 
 def _cell_unis(n, stream, cell, rng):

@@ -692,3 +692,126 @@ def test_reader_of_the_ladder_roofline():
     assert bound == pytest.approx(29.879e-6, rel=1e-4)
     run.device_trace = None
     assert _reader("ladder_kernel.roofline_pct").read(run) is None
+
+
+# --- the SRC stage and its resampler ---------------------------------------
+
+def _src_feed(stage, sizes=(7, 1024, 441)):
+    """Stereo f32p frames of ``sizes`` at 44.1 kHz through ``stage``: what
+    it emitted."""
+    from swiftvideo_tpu_torch.media.audio import AudioFormat, AudioSample
+    rng = np.random.default_rng(SEED)
+    out, at = [], 0
+    for n in sizes:
+        x = (0.25 * rng.standard_normal((2, n))).astype(np.float32)
+        got = stage(AudioSample(
+            buffers=tuple(x), frequency=44100, channels=2,
+            format=AudioFormat.f32p, sample_count=n,
+            pts_value=TimePoint(at, 44100), id_asset="mic",
+            id_workspace="w")).value()
+        if got is not None:
+            out.append(got.data()[0])
+        at += n
+    return out
+
+
+def _src_stage(route):
+    from swiftvideo_tpu_torch.media.audio import AudioFormat
+    from swiftvideo_tpu_torch.mix.src_audio import AudioSampleRateConversion
+    kwargs = {"use_device": True, "device": "cpu"} if route == "device" \
+        else {}
+    return AudioSampleRateConversion(48000, 2, AudioFormat.s16i, **kwargs)
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_src_spans_and_counters(route):
+    """Frames of 7, 1024 and 441 samples: the first fills the filter and
+    emits nothing (no product), then 1120 and 480 samples, 1600 of the
+    1472 fed.  Each call is a ``resample.process`` span inside its
+    ``stage.src``, the device route's product a ``resample.device`` span
+    inside that; the output is the untraced one."""
+    plain = _src_feed(_src_stage(route))
+    spans.start()
+    traced = _src_feed(_src_stage(route))
+    rec = spans.stop()
+    assert [len(a) for a in traced] == [2 * 1120, 2 * 480]
+    assert all(np.array_equal(a, b) for a, b in zip(plain, traced))
+    names = [rec.names[k] for k in rec.name]
+    device = route == "device"
+    call = ["stage.src", "resample.process"]
+    assert names == call + (call + ["resample.device"] * device) * 2
+    parents = [-1, 0] + ([-1, 2, 3, -1, 5, 6] if device
+                         else [-1, 2, -1, 4])
+    assert rec.parent.tolist() == parents
+    assert rec.counters == {
+        "resample.calls": 3, "resample.in_samples": 7 + 1024 + 441,
+        "resample.out_samples": 1120 + 480,
+        **({"resample.device_calls": 2} if device else {})}
+
+
+def test_src_off_records_nothing(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a site reached the recorder while it was off")
+
+    monkeypatch.setattr(spans, "begin", refuse)
+    monkeypatch.setattr(spans, "count", refuse)
+    assert len(_src_feed(_src_stage("device"))) == 2
+    rec = spans.stop()
+    assert len(rec) == 0 and rec.counters == {}
+
+
+class _ResampleTrace:
+    """A device trace whose window is 0-250 us on the host's clock (the
+    profiler's clock 1000 ns ahead), holding a copy and two kernels of
+    ``seconds`` in all."""
+
+    host_offset_ns = 1000
+    window_ns = (1000, 1000 + 250_000)
+
+    def __init__(self, seconds):
+        half = int(seconds * 1e9 / 2)
+        self.events = [("Memcpy HtoD (Pageable -> Device)", 1000, 9000),
+                       ("gemm", 2000, 2000 + half),
+                       ("copy", 9000, 9000 + half)]
+
+
+def test_readers_of_the_resampler():
+    """Two frames, each a stage call around one resampler call with its
+    device route, and a third device call outside the trace's window."""
+    rec = _records([
+        ("stage.src", 0, 100_000, -1),
+        ("resample.process", 10_000, 90_000, 0),
+        ("resample.device", 30_000, 80_000, 1),
+        ("stage.src", 120_000, 200_000, -1),
+        ("resample.process", 125_000, 195_000, 3),
+        ("resample.device", 140_000, 190_000, 4),
+        ("resample.device", 300_000, 310_000, -1)], counters={
+        "resample.calls": 4, "resample.device_calls": 3,
+        "resample.in_samples": 3 * 1024, "resample.out_samples": 3 * 1120})
+    run = _run(rec, frames=2, trace=_ResampleTrace(4e-6))
+    run.config = {"channels": 2, "taps_per_phase": 24}
+    # stage calls 180 us less their resampler calls' 150: 15 a frame; the
+    # resampler calls 150 less their device routes' 100: 25; device 50
+    # (the one outside both stage calls counted too: (100 + 10) / 2)
+    assert _reader("src.self_us").read(run) == pytest.approx(15)
+    assert _reader("resample.self_us").read(run) == pytest.approx(25)
+    assert _reader("resample.device_us").read(run) == pytest.approx(55)
+    assert _reader("resample.device_route_pct").read(run) == \
+        pytest.approx(75)
+    # two device calls in the window, each bound by 2 x 4 x 2144 bytes at
+    # 3.35 TB/s (5.12 ns; its 107 520 operations take 1.6 ns at 67
+    # TFLOP/s), over the kernels' 4 us: the copy is not a kernel
+    bound = 2 * 4 * (1024 + 1120) / 3.35e12
+    assert _reader("resample_kernel.roofline_pct").read(run) == \
+        pytest.approx(2 * bound / 4e-6 * 100)
+    assert _reader("resample_kernel.roofline_pct").read(
+        _run(rec, frames=2, trace=None)) is None
+    # a program without the resampler's spans and counters (the stage's
+    # span alone): nothing to read
+    older = _run(_records([("stage.src", 0, 10, -1)]), frames=2,
+                 trace=_ResampleTrace(4e-6))
+    older.config = run.config
+    for name in ("src.self_us", "resample.self_us", "resample.device_us",
+                 "resample.device_route_pct",
+                 "resample_kernel.roofline_pct"):
+        assert _reader(name).read(older) is None, name
